@@ -1,0 +1,75 @@
+"""Image metrics: PSNR and windowed SSIM (port of the metric half of
+c3dgs_tpu/ops/losses.py; the training losses come with the training slice).
+
+Images are CHW float tensors in [0,1], optionally with a leading batch axis.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-image MSE, (B, 1)."""
+    diff = (pred - target) ** 2
+    return diff.reshape(diff.shape[0], -1).mean(1, keepdim=True)
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """PSNR in dB per image, (B, 1); inputs CHW or BCHW."""
+    if pred.ndim == 3:
+        pred, target = pred[None], target[None]
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse(pred, target)))
+
+
+@functools.lru_cache(maxsize=4)
+def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
+    xs = np.arange(window_size, dtype=np.float64)
+    gauss = np.exp(-((xs - window_size // 2) ** 2) / (2.0 * sigma**2))
+    gauss = gauss / gauss.sum()
+    return np.outer(gauss, gauss).astype(np.float32)
+
+
+def _depthwise_conv_same(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """Per-channel 2D conv with zero 'same' padding. img: [B, C, H, W].
+
+    Full fp32 is required: SSIM's variance terms (conv(img^2) - mu^2)
+    cancel catastrophically, and cuDNN runs fp32 convolutions in TF32 by
+    default. cuDNN is therefore switched off for this call, which sends the
+    depthwise convolution to PyTorch's own fp32 kernel."""
+    c = img.shape[1]
+    kernel = window.expand(c, 1, *window.shape).contiguous()
+    with torch.backends.cudnn.flags(enabled=False):
+        return F.conv2d(img, kernel, padding=window.shape[-1] // 2, groups=c)
+
+
+def ssim(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    window_size: int = 11,
+    size_average: bool = True,
+) -> torch.Tensor:
+    """Structural similarity (11x11 gaussian window, sigma 1.5, zero
+    padding), CHW or BCHW."""
+    if img1.ndim == 3:
+        img1, img2 = img1[None], img2[None]
+    window = torch.as_tensor(_gaussian_window(window_size, 1.5), device=img1.device)
+
+    mu1 = _depthwise_conv_same(img1, window)
+    mu2 = _depthwise_conv_same(img2, window)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+
+    sigma1_sq = _depthwise_conv_same(img1 * img1, window) - mu1_sq
+    sigma2_sq = _depthwise_conv_same(img2 * img2, window) - mu2_sq
+    sigma12 = _depthwise_conv_same(img1 * img2, window) - mu1_mu2
+
+    c1, c2 = 0.01**2, 0.03**2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+    )
+    if size_average:
+        return ssim_map.mean()
+    return ssim_map.mean(dim=(1, 2, 3))

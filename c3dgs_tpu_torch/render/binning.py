@@ -1,0 +1,293 @@
+"""Fixed-capacity tile binning (port of c3dgs_tpu/render/binning.py): the
+reference's duplicateWithKeys -> radix sort -> identifyTileRanges pipeline
+(rasterizer_impl.cu:70-138, 275-316) as enumeration + one sort.
+
+Every field equals the JAX Binning on the same Preprocessed: frozen slots
+and (next slice) per-slot gradient rows are indexed by sorted slot, so the
+order must match exactly. The TPU workarounds of the JAX module become
+their plain torch equivalents:
+- the lexicographic (key, payload) sort is ONE stable int64 sort of
+  key << 32 | payload (both non-negative int32 values);
+- `_rank_in_sorted` (#{boundaries <= q} by two packed sorts) is
+  torch.searchsorted(..., right=True) over sorted boundaries;
+- quantize_depth runs the same f32 operation order and clamps in int64.
+The tile-sharded `bin_gaussians_routed` comes with the multi-device slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .preprocess import Preprocessed
+from .types import TILE_X, TILE_Y, RasterSettings
+
+CHUNK = 128  # slots per aligned chunk of the sorted instance array
+NUM_FIELDS = 16  # staged instance field rows (9 used)
+NUM_USED_FIELDS = 9  # x, y, conic(3), opacity, rgb(3)
+OFFSET_ROW = 10  # table column carrying each gaussian's first emission slot
+
+
+def DEPTH_BITS(num_tiles: int) -> int:
+    """Bits left for quantized depth in the packed 31-bit sort key."""
+    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
+    return 31 - tile_bits
+
+
+def quantize_depth(depth: torch.Tensor, alive: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """Monotone depth quantization for the packed sort key (shared with the
+    oracle so tile and oracle orderings agree exactly). int64 values in
+    [0, 2^bits - 1]."""
+    bits = DEPTH_BITS(num_tiles)
+    levels = (1 << bits) - 1
+    inf = torch.tensor(float("inf"), dtype=depth.dtype, device=depth.device)
+    dmin = torch.min(torch.where(alive, depth, inf))
+    dmax = torch.max(torch.where(alive, depth, -inf))
+    dmin = torch.where(torch.isfinite(dmin), dmin, torch.zeros_like(dmin))
+    span = torch.clamp(dmax - dmin, min=1e-12)
+    q = torch.clamp((depth - dmin) / span * float(levels), 0.0, float(levels))
+    # final clamp in the integer domain: f32(levels) rounds up to 2^bits
+    return torch.clamp(q.to(torch.int64), max=levels)
+
+
+def _tile_hit(rows: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor, settings: RasterSettings):
+    """Exact ellipse-tile test: can this instance's alpha reach 1/255
+    anywhere in tile (tx, ty)? The concave exponent's max over the pixel
+    box is 0 if the mean lies inside, else on one of the 4 edges (clamped
+    1-D argmax each). 1e-3 log-domain margin; non-PSD conics are kept.
+    `rows` are the float columns of the instance table: x, y, conic a/b/c,
+    opacity."""
+    gx, gy, a, b, c, op = rows.unbind(1)
+
+    psd = (a > 0.0) & (c > 0.0) & (a * c - b * b > 0.0)
+    a_s = torch.where(psd, a, torch.ones_like(a))
+    c_s = torch.where(psd, c, torch.ones_like(c))
+
+    x0 = (tx * TILE_X).to(torch.float32)
+    y0 = (ty * TILE_Y).to(torch.float32)
+    x1 = torch.clamp(x0 + (TILE_X - 1), max=float(settings.width - 1))
+    y1 = torch.clamp(y0 + (TILE_Y - 1), max=float(settings.height - 1))
+    lx, hx = x0 - gx, x1 - gx
+    ly, hy = y0 - gy, y1 - gy
+
+    def power(dx, dy):
+        return -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+
+    def edge_x(e):  # dx fixed at e, dy free in [ly, hy]
+        return power(e, torch.minimum(torch.maximum(-b * e / c_s, ly), hy))
+
+    def edge_y(e):  # dy fixed at e, dx free in [lx, hx]
+        return power(torch.minimum(torch.maximum(-b * e / a_s, lx), hx), e)
+
+    maxp = torch.maximum(
+        torch.maximum(edge_x(lx), edge_x(hx)), torch.maximum(edge_y(ly), edge_y(hy))
+    )
+    inside = (lx <= 0.0) & (hx >= 0.0) & (ly <= 0.0) & (hy >= 0.0)
+    maxp = torch.where(inside, torch.zeros_like(maxp), maxp)
+    thr = -torch.log(torch.clamp(255.0 * op, min=1e-30))
+    return (maxp >= thr - 1e-3) | ~psd
+
+
+class Binning(NamedTuple):
+    """Sorted, tile-segmented instance bookkeeping (all int32 on device).
+
+    The cap-long sorted instance array holds each tile's kept instances
+    front to back, one sentinel slot per tile at its segment end, then the
+    invalid/culled tail."""
+
+    gid_sorted: torch.Tensor  # (cap,) source gaussian per slot (clamped to n-1)
+    j_sorted: torch.Tensor  # (cap,) within-gaussian tile index
+    starts: torch.Tensor  # (T,) first slot of each tile
+    ends: torch.Tensor  # (T,) the tile's sentinel slot (one past its last)
+    nchunks: torch.Tensor  # (T,) ceil(count / CHUNK)
+    grad_base: torch.Tensor  # (T,) 128-aligned per-tile grad offset
+    grad_total: torch.Tensor  # () total per-tile grad slots
+    emit_cum: torch.Tensor  # (N,) inclusive prefix of per-gaussian emits
+    offset: torch.Tensor  # (N,) first emission slot (emit_cum - emit)
+    num_instances: torch.Tensor  # () true emitted instances
+    overflow: torch.Tensor  # () instances dropped (capacity)
+    grad_overflow: torch.Tensor  # () per-tile grad slots beyond grad capacity
+    clipped: torch.Tensor  # () tiles dropped (per-gaussian cap)
+    culled: torch.Tensor  # () instances dropped by the ellipse-tile test
+    tid_sorted: torch.Tensor  # (cap,) tile per slot: sentinels keep their
+    # real tile, invalid/culled slots carry num_tiles
+    sent_sorted: torch.Tensor  # (cap,) bool sentinel (and invalid) slots
+    tile_lo: torch.Tensor  # (cap//CHUNK + 1,) #tiles whose sentinel lies
+    # before chunk c: tiles [tile_lo[c], tile_lo[c+1]) flush in chunk c
+    chunks_exec: torch.Tensor  # () chunks covering every sentinel
+    perm: Optional[torch.Tensor]  # (cap,) sorted slot -> gaussian-major
+    # order, for the backward's grad reduction; None for inference, whose
+    # forward-only graph never reads it (the JAX graph drops it the same way)
+
+
+def _payload_bits(n: int, num_tiles: int) -> int:
+    """j bits of the packed (gid << j_bits | j) payload."""
+    return 31 - int(n + num_tiles).bit_length()
+
+
+def _emission_prefix(prep: Preprocessed, max_tiles: int):
+    """Per-gaussian emission counts and their inclusive prefix (int64)."""
+    tiles_touched = prep.tiles_touched.to(torch.int64)
+    emit = torch.clamp(tiles_touched, max=max_tiles)
+    clipped = torch.sum(tiles_touched - emit)
+    return emit, torch.cumsum(emit, 0), clipped
+
+
+def _instance_table(prep: Preprocessed, cum, emit, num_tiles: int):
+    """Per-gaussian lookup table gathered once per instance: int columns
+    [offset, rect_min_x, rect_min_y, rect_w, depth_q] and float columns
+    [x, y, conic a/b/c, opacity]."""
+    depth_q = quantize_depth(prep.depth, prep.radius > 0, num_tiles)
+    ints = torch.stack(
+        [
+            cum - emit,
+            prep.rect_min[:, 0].to(torch.int64),
+            prep.rect_min[:, 1].to(torch.int64),
+            torch.clamp(prep.rect_max[:, 0] - prep.rect_min[:, 0], min=1).to(torch.int64),
+            depth_q,
+        ],
+        1,
+    )
+    floats = torch.cat(
+        [prep.mean2d, prep.conic, prep.opacity[:, None]], 1
+    ).to(torch.float32)
+    return ints, floats
+
+
+def _enumerate_slots(ints, floats, cum, total, slots, n: int, settings: RasterSettings):
+    """Instance enumeration over `slots`: each slot finds its gaussian by
+    rank over the emission prefix, derives its tile, and runs the
+    ellipse-tile cull. Returns the int64 (key, payload) sort columns and
+    the culled count."""
+    num_tiles = settings.num_tiles
+    j_bits = _payload_bits(n, num_tiles)
+    gid_k = torch.searchsorted(cum, slots, right=True)
+    gid_safe = torch.clamp(gid_k, max=n - 1)
+    valid = slots < total
+    irow = ints[gid_safe]
+    j = slots - irow[:, 0]
+    rw = irow[:, 3]
+    ty = irow[:, 2] + torch.div(j, rw, rounding_mode="floor")
+    tx = irow[:, 1] + torch.remainder(j, rw)
+    keep = valid & _tile_hit(floats[gid_safe], tx, ty, settings)
+    tile_k = torch.where(keep, ty * settings.tiles_x + tx, torch.full_like(tx, num_tiles))
+
+    db = DEPTH_BITS(num_tiles)
+    key = (tile_k << db) | torch.where(keep, irow[:, 4], torch.zeros_like(tile_k))
+    # payload (gid << j_bits) | j; invalid slots carry gid = n + T. Culled
+    # slots keep their real payload (the gaussian-major perm orders every
+    # emission; their tile key parks them past every sentinel)
+    pj = (gid_safe << j_bits) | j
+    pj = torch.where(valid, pj, torch.full_like(pj, (n + num_tiles) << j_bits))
+    return key, pj, torch.sum((valid & ~keep).to(torch.int64))
+
+
+def bin_gaussians(prep: Preprocessed, settings: RasterSettings) -> Binning:
+    """Per-tile depth-sorted instance bookkeeping over the full tile grid."""
+    dev = prep.depth.device
+    n = prep.depth.shape[0]
+    cap, max_tiles = settings.resolve_caps(n)
+    grad_cap = settings.resolve_grad_cap(n)
+    num_tiles = settings.num_tiles
+    i64 = dict(dtype=torch.int64, device=dev)
+
+    j_bits = _payload_bits(n, num_tiles)
+    max_tiles = min(max_tiles, 1 << j_bits)
+    emit, cum, clipped = _emission_prefix(prep, max_tiles)
+    total = cum[-1]
+    # T sentinel rows must fit inside the cap window; the excess is dropped
+    overflow = torch.clamp(total - (cap - num_tiles), min=0)
+
+    ints, floats = _instance_table(prep, cum, emit, num_tiles)
+    slots = torch.arange(cap, **i64)
+    key, pj, culled = _enumerate_slots(ints, floats, cum, total, slots, n, settings)
+    db = DEPTH_BITS(num_tiles)
+    levels = (1 << db) - 1
+    t_ids = torch.arange(num_tiles, **i64)
+    # one sentinel row per tile: (tile, max depth), payload n + t — after
+    # every real row of its tile in (key, payload) order
+    key_all = torch.cat([key, (t_ids << db) | levels])
+    pj_all = torch.cat([pj, (n + t_ids) << j_bits])
+    packed, _ = torch.sort((key_all << 32) | pj_all)
+    packed = packed[:cap]
+    key_s = packed >> 32
+    pj_s = packed & 0xFFFFFFFF
+
+    gid_s = torch.clamp(pj_s >> j_bits, max=n - 1)
+    j_s = pj_s & ((1 << j_bits) - 1)
+    is_sent = pj_s >= (n << j_bits)
+    tid_sorted = torch.clamp(key_s >> db, max=num_tiles)
+
+    perm = None
+    if settings.inference:
+        # sentinel positions ascending ARE ends[0..T): a stable sort on
+        # "not a sentinel" lists them first (then the remaining positions,
+        # which an overflowing frame may reach — as in the JAX sort)
+        order = torch.sort((~is_sent).to(torch.uint8), stable=True).indices
+        ends = order[:num_tiles]
+    else:
+        # training: sentinel t sits at payload-sorted position K + t (K =
+        # #real payloads); the start clamps to [0, cap - T] like
+        # lax.dynamic_slice
+        perm = torch.sort(pj_s, stable=True).indices
+        k_real = torch.sum((pj_s < (n << j_bits)).to(torch.int64))
+        k0 = torch.clamp(k_real, 0, cap - num_tiles)
+        ends = perm[k0 + t_ids]
+    starts = torch.cat([torch.zeros(1, **i64), ends[:-1] + 1])
+    counts = ends - starts
+
+    nchunks = torch.div(counts + CHUNK - 1, CHUNK, rounding_mode="floor")
+    grad_base = (torch.cumsum(nchunks, 0) - nchunks) * CHUNK
+    grad_total = torch.sum(nchunks) * CHUNK
+    grad_overflow = torch.clamp(grad_total - grad_cap, min=0)
+
+    # tile_lo[c] = #{ends < c*CHUNK}
+    nc = cap // CHUNK
+    chunk_starts = torch.arange(nc + 1, **i64) * CHUNK
+    tile_lo = torch.searchsorted(torch.sort(ends + 1).values, chunk_starts, right=True)
+    chunks_exec = torch.div(ends[num_tiles - 1] + 1 + CHUNK - 1, CHUNK, rounding_mode="floor")
+
+    i32 = lambda v: v.to(torch.int32)
+    return Binning(
+        gid_sorted=i32(gid_s),
+        j_sorted=i32(j_s),
+        starts=i32(starts),
+        ends=i32(ends),
+        nchunks=i32(nchunks),
+        grad_base=i32(grad_base),
+        grad_total=i32(grad_total),
+        emit_cum=i32(cum),
+        offset=i32(cum - emit),
+        num_instances=i32(total),
+        overflow=i32(overflow),
+        grad_overflow=i32(grad_overflow),
+        clipped=i32(clipped),
+        culled=i32(culled),
+        tid_sorted=i32(tid_sorted),
+        sent_sorted=is_sent,
+        tile_lo=i32(tile_lo),
+        chunks_exec=i32(chunks_exec),
+        perm=None if perm is None else i32(perm),
+    )
+
+
+def per_gaussian_table(prep: Preprocessed, offset: torch.Tensor) -> torch.Tensor:
+    """(N, NUM_FIELDS) per-gaussian field table: 0 x, 1 y, 2..4 PRE-SCALED
+    conic (-0.5a, -b, -0.5c, so power = a'dx² + b'dxdy + c'dy²), 5
+    opacity, 6..8 rgb, OFFSET_ROW the first emission slot (exact in f32);
+    the rest zero."""
+    n = prep.mean2d.shape[0]
+    dt, dev = prep.mean2d.dtype, prep.mean2d.device
+    scale = torch.tensor([-0.5, -1.0, -0.5], dtype=prep.conic.dtype, device=dev)
+    return torch.cat(
+        [
+            prep.mean2d,
+            prep.conic * scale,
+            prep.opacity[:, None],
+            prep.color,
+            torch.zeros((n, OFFSET_ROW - NUM_USED_FIELDS), dtype=dt, device=dev),
+            offset.detach().to(dt)[:, None],
+            torch.zeros((n, NUM_FIELDS - OFFSET_ROW - 1), dtype=dt, device=dev),
+        ],
+        1,
+    )

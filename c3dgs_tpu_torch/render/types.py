@@ -1,0 +1,105 @@
+"""Rasterization settings (port of c3dgs_tpu/render/types.py).
+
+Static render geometry as a frozen dataclass of python numbers; camera
+tensors travel separately, so one settings object serves every frame of a
+resolution.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os as _os
+from typing import Tuple
+
+# Tile shape: 32x16 (the packed kernels' PIX = 512). Env-overridable for
+# tile-shape experiments (C3DGS_TILE_X/Y, read once at import); the CUDA
+# forward kernel supports only the default and its wrapper raises on any
+# other shape.
+TILE_X = int(_os.environ.get("C3DGS_TILE_X", 32))  # pixels per tile, x
+TILE_Y = int(_os.environ.get("C3DGS_TILE_Y", 16))  # pixels per tile, y
+# binning slot-domain ceiling: presort slots ride f32 staged-field rows and
+# must be exactly representable (2^24)
+MAX_BINNING_CAP = (1 << 24) - (1 << 20)
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterSettings:
+    """Static render configuration (hashable)."""
+
+    width: int
+    height: int
+    tanfovx: float
+    tanfovy: float
+    sh_degree: int = 3
+    scale_modifier: float = 1.0
+    clamp_color: bool = True
+    # capacity of the (gaussian, tile) instance list; overflow is counted
+    # and reported. 0 => auto: 8 * num_gaussians
+    instance_capacity: int = 0
+    # cap on tiles a single gaussian may occupy; 0 => the full tile grid
+    # (binning additionally caps it to fit the packed (gid, j) payload)
+    max_tiles_per_gaussian: int = 0
+    # per-instance gradient buffer capacity; in packed mode it doubles as
+    # the EXECUTION capacity of the forward kernel. 0 => the slot domain
+    grad_capacity: int = 0
+    # single-pass backward contractions (the training slice's K2)
+    fast_grad: bool = True
+    # packed-chunk kernels (render/tiles_packed.py); False selects the
+    # per-tile kernel family, which this port does not have yet
+    packed: bool = True
+    # forward-only rendering: binning reads tile ranges from a sentinel
+    # position sort and skips the gaussian-major permutation that only the
+    # backward needs. ends/starts values are identical either way.
+    inference: bool = False
+
+    @property
+    def focal_x(self) -> float:
+        return self.width / (2.0 * self.tanfovx)
+
+    @property
+    def focal_y(self) -> float:
+        return self.height / (2.0 * self.tanfovy)
+
+    @property
+    def tiles_x(self) -> int:
+        return (self.width + TILE_X - 1) // TILE_X
+
+    @property
+    def tiles_y(self) -> int:
+        return (self.height + TILE_Y - 1) // TILE_Y
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    def resolve_caps(self, num_gaussians: int) -> Tuple[int, int]:
+        inst = self.instance_capacity
+        if not inst:
+            inst = min(max(1024, 8 * num_gaussians), MAX_BINNING_CAP)
+        # 128-chunk grain: the staged fields are read in aligned chunks
+        inst = (inst + 127) // 128 * 128
+        if inst + self.num_tiles >= (1 << 24):
+            raise ValueError(
+                "instance_capacity + num_tiles must stay below 2^24 (presort "
+                f"slots ride exact f32); got {inst}"
+            )
+        mtpg = self.max_tiles_per_gaussian or self.num_tiles
+        return inst, mtpg
+
+    def resolve_grad_cap(self, num_gaussians: int) -> int:
+        if self.packed:
+            cap, _ = self.resolve_caps(num_gaussians)
+            if self.grad_capacity:
+                return min((self.grad_capacity + 127) // 128 * 128, cap)
+            return cap
+        if self.grad_capacity:
+            return (self.grad_capacity + 127) // 128 * 128
+        cap, _ = self.resolve_caps(num_gaussians)
+        return cap + 2 * 128 * self.num_tiles
+
+
+def settings_from_intrinsic(intrinsic, **kw) -> RasterSettings:
+    """Build RasterSettings from the fork's 3x3 FoV-radian intrinsic."""
+    from ..ops.camera_math import intrinsic_geometry
+
+    w, h, tx, ty, _, _ = intrinsic_geometry(intrinsic)
+    return RasterSettings(width=w, height=h, tanfovx=tx, tanfovy=ty, **kw)
