@@ -8,8 +8,9 @@ for Hopper (csrc/), launched through a wrapper that keeps a plain PyTorch
 version beside it for CPU tensors.
 
 Entry points (from_point_cloud, scene_from_numpy, render_scene,
-render_full, render_and_eval) run on the CUDA device unless the caller
-passes device="cpu".
+render_full, render_and_eval, create_train_state, train_step,
+densify_step, reset_opacity_step, grow_capacity) run on the CUDA device
+unless the caller passes device="cpu".
 """
 from .device import resolve_device
 

@@ -3,9 +3,14 @@
 An nn.Module holding the pre-activation fields as nn.Parameters and the
 `active` mask plus the six fake-quant observers as buffers. Accessors apply
 fake-quant + activation exactly like the JAX scene, so a scene carried over
-with `scene_from_numpy` renders the same image. Codebook-indexed scenes
-(`to_indexed` and the index paths) come with the indexed slice: a scene
-built with index arrays raises NotImplementedError.
+with `scene_from_numpy` renders the same image, and autograd carries the
+straight-through fake-quant gradients back to the parameters.
+
+The JAX scene is immutable; here the operations that keep the capacity
+(update_observers, oneup_sh_degree, mask_splats) update the module in
+place and return it, and pad_to_capacity returns a new scene. Codebook-
+indexed scenes (`to_indexed` and the index paths) come with the indexed
+slice: a scene built with index arrays raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -86,6 +91,18 @@ class GaussianScene(nn.Module):
     def device(self) -> torch.device:
         return self.xyz.device
 
+    @property
+    def num_active(self) -> torch.Tensor:
+        return self.active.sum()
+
+    def check_state(self) -> None:
+        """Invariant asserts (gaussian_model.py:138-154)."""
+        p = self.xyz.shape[0]
+        for name in ("opacity", "active", "rotation", "scaling", "features_dc", "features_rest"):
+            assert getattr(self, name).shape[0] == p, name
+        if self.scaling_factor is not None:
+            assert self.scaling_factor.shape[0] == p
+
     def observer(self, name: str) -> ObserverState:
         v = getattr(self, f"quant_{name}")
         return ObserverState(v[0], v[1], v[2])
@@ -147,6 +164,72 @@ class GaussianScene(nn.Module):
         """(P,6) covariance of the normalized scale."""
         return quat.cov6_from_scaling_rotation(
             scaling_modifier * self.get_scaling_normalized(), self.get_rotation()
+        )
+
+    # ------------------------------------------------------------- observers
+    @torch.no_grad()
+    def update_observers(self) -> "GaussianScene":
+        """One observer EMA step over every quantized attribute, observing
+        the raw or activated fields exactly as the JAX scene does; no-op
+        without quantization."""
+        if not self.quantization:
+            return self
+        seen = {
+            "features_dc": self.features_dc,
+            "features_rest": self.features_rest,
+            "opacity": torch.sigmoid(self.opacity),
+            "scaling": quat.normalize(torch.relu(self.scaling)),
+            "scaling_factor": self.scaling_factor,
+            "rotation": self.rotation,
+        }
+        for name, x in seen.items():
+            if x is not None:
+                getattr(self, f"quant_{name}").copy_(torch.stack(quantize.observe(self.observer(name), x)))
+        return self
+
+    # --------------------------------------------------------- reorg / modes
+    def oneup_sh_degree(self) -> "GaussianScene":
+        if self.active_sh_degree < self.max_sh_degree:
+            self.active_sh_degree += 1
+        return self
+
+    @torch.no_grad()
+    def mask_splats(self, keep: torch.Tensor) -> "GaussianScene":
+        """Deactivate rows (gaussian_model.py:1027, masked, not sliced)."""
+        self.active &= keep
+        return self
+
+    @torch.no_grad()
+    def pad_to_capacity(self, capacity: int) -> "GaussianScene":
+        """A scene with `capacity` rows: these rows, then inactive padding
+        (opacity logit(1e-4), scaling 1, scaling_factor -10, identity
+        rotation, zero elsewhere)."""
+        cur = self.capacity
+        if capacity < cur:
+            raise ValueError(f"capacity {capacity} is below the current {cur}")
+        if capacity == cur:
+            return self
+        extra = capacity - cur
+
+        def pad(x, fill=0.0):
+            return torch.cat([x.detach(), torch.full((extra, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)])
+
+        rotation = pad(self.rotation)
+        rotation[cur:, 0] = 1.0
+        return GaussianScene(
+            xyz=pad(self.xyz),
+            opacity=pad(self.opacity, float(misc.inverse_sigmoid(1e-4))),
+            scaling_factor=None if self.scaling_factor is None else pad(self.scaling_factor, -10.0),
+            active=pad(self.active, False),
+            features_dc=pad(self.features_dc),
+            features_rest=pad(self.features_rest),
+            scaling=pad(self.scaling, 1.0),
+            rotation=rotation,
+            quant={name: self.observer(name) for name in QUANT_FIELDS},
+            max_sh_degree=self.max_sh_degree,
+            active_sh_degree=self.active_sh_degree,
+            quantization=self.quantization,
+            use_factor_scaling=self.use_factor_scaling,
         )
 
 

@@ -1,1 +1,1 @@
-"""Tensor ops of the port (quaternions, camera math, SH, metrics, fake-quant)."""
+"""Tensor ops of the port (quaternions, camera math, SH, losses, fake-quant)."""

@@ -1,5 +1,5 @@
-"""Image metrics: PSNR and windowed SSIM (port of the metric half of
-c3dgs_tpu/ops/losses.py; the training losses come with the training slice).
+"""Losses and image metrics: L1/L2, windowed SSIM, PSNR and the training
+objective (port of c3dgs_tpu/ops/losses.py).
 
 Images are CHW float tensors in [0,1], optionally with a leading batch axis.
 """
@@ -10,6 +10,14 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.abs(pred - target).mean()
+
+
+def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred - target) ** 2).mean()
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -33,17 +41,40 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     return np.outer(gauss, gauss).astype(np.float32)
 
 
+def _conv_fp32(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise 'same' correlation with cuDNN switched off, which sends it
+    to PyTorch's own fp32 kernel on the card (cuDNN runs fp32
+    convolutions in TF32 by default)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return F.conv2d(img, kernel, padding=kernel.shape[-1] // 2, groups=img.shape[1])
+
+
+class _DepthwiseConvSame(torch.autograd.Function):
+    """The forward AND its input gradient in full fp32. Autograd would run
+    conv2d's backward later, outside any flags context, under whatever the
+    global cuDNN flags say (TF32 allowed by default); this backward is the
+    'same' correlation of the cotangent with the flipped window, under the
+    same flags as the forward."""
+
+    @staticmethod
+    def forward(ctx, img, kernel):
+        ctx.save_for_backward(kernel)
+        return _conv_fp32(img, kernel)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (kernel,) = ctx.saved_tensors
+        return _conv_fp32(grad_out.contiguous(), torch.flip(kernel, (-2, -1))), None
+
+
 def _depthwise_conv_same(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Per-channel 2D conv with zero 'same' padding. img: [B, C, H, W].
 
-    Full fp32 is required: SSIM's variance terms (conv(img^2) - mu^2)
-    cancel catastrophically, and cuDNN runs fp32 convolutions in TF32 by
-    default. cuDNN is therefore switched off for this call, which sends the
-    depthwise convolution to PyTorch's own fp32 kernel."""
+    Full fp32 is required in both directions: SSIM's variance terms
+    (conv(img^2) - mu^2) cancel catastrophically."""
     c = img.shape[1]
-    kernel = window.expand(c, 1, *window.shape).contiguous()
-    with torch.backends.cudnn.flags(enabled=False):
-        return F.conv2d(img, kernel, padding=window.shape[-1] // 2, groups=c)
+    kernel = window.to(img.dtype).expand(c, 1, *window.shape).contiguous()
+    return _DepthwiseConvSame.apply(img, kernel)
 
 
 def ssim(
@@ -73,3 +104,8 @@ def ssim(
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2, 3))
+
+
+def photometric_loss(pred: torch.Tensor, target: torch.Tensor, lambda_dssim: float = 0.2) -> torch.Tensor:
+    """The training objective: (1-lambda)*L1 + lambda*(1-SSIM)."""
+    return (1.0 - lambda_dssim) * l1_loss(pred, target) + lambda_dssim * (1.0 - ssim(pred, target))

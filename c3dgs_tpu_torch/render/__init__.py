@@ -1,2 +1,2 @@
-"""Serving render path of the port: preprocess, binning, the packed forward
-kernel and image assembly."""
+"""Render path of the port: preprocess, binning, the packed forward and
+backward kernels, the per-slot gradient reduction and image assembly."""

@@ -1,13 +1,14 @@
-"""Rasterizer: the packed forward path (port of c3dgs_tpu/render/rasterizer.py).
+"""Rasterizer: the packed path (port of c3dgs_tpu/render/rasterizer.py).
 
   preprocess -> bin_gaussians -> per_gaussian_table
-  -> blend_gaussians_packed (stage the sorted fields + K1)
+  -> blend_gaussians_packed (stage the sorted fields + K1; backward: K2 +
+     the per-slot grad reduction through binning.perm)
   -> assemble_image (tile-space background composite, soft-clamp mask)
 
-`blend_gaussians_packed` is a torch.autograd.Function whose backward (K2 +
-the per-slot grad reduction) arrives with the training slice; until then
-it raises. The per-tile kernel family (`packed=False`, K3/K4) is a later
-slice too.
+Gradients reach every input of `render` by autograd: the blend's backward
+returns d_table, and autograd carries it through per_gaussian_table,
+preprocess and the viewspace offset. The per-tile kernel family
+(`packed=False`, K3/K4) is a later slice.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Optional
 import torch
 
 from . import tiles_packed
-from .binning import CHUNK, OFFSET_ROW, bin_gaussians, per_gaussian_table
+from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW, bin_gaussians, per_gaussian_table
 from .preprocess import Preprocessed, preprocess
 from .types import TILE_X, TILE_Y, RasterSettings
 
@@ -55,30 +56,97 @@ def _build_fields_packed(
     return torch.stack(cols, 0)
 
 
+def _segment_prefix_diff(d_pre, end_idx, valid, compensated: bool):
+    """Per-segment sums by prefix differences at end_idx.
+
+    d_pre: (live, rows) values, segment-contiguous along rows; end_idx:
+    (n,) inclusive-end row count per segment (nondecreasing); valid: (n,)
+    bool (False -> zero segment). Returns (n, live). A segment of exact
+    zeros sums to exactly 0. The prefix runs along the contiguous last
+    dimension: torch scans an outer dimension of a few columns with one
+    thread per column (the whole reduction then took 176 ms at the 1080p
+    bench frame on an H100); the inner-dimension scan is deterministic.
+
+    compensated=True adds a second prefix over the per-step rounding
+    residues r_i = d_pre_i - (cs_i - cs_{i-1}) (exact in f32, Fast2Sum):
+    the raw difference errs by O(eps * |prefix|) absolute, which reaches
+    ~0.3 on the moment columns of a 1080p frame, and the residue prefix
+    recovers the lost mass to second order."""
+    live, rows = d_pre.shape
+    cs = torch.cumsum(d_pre, 1)
+    if compensated:
+        prev_cs = torch.cat([torch.zeros_like(cs[:, :1]), cs[:, :-1]], 1)
+        r = d_pre - (cs - prev_cs)
+        cs = torch.cat([cs, torch.cumsum(r, 1)], 0)
+    cs_end = torch.where(
+        valid[None, :], cs[:, torch.clamp(end_idx.long() - 1, 0, rows - 1)], torch.zeros_like(cs[:, :1])
+    )
+    prev = torch.cat([torch.zeros_like(cs_end[:, :1]), cs_end[:, :-1]], 1)
+    seg = cs_end - prev
+    if compensated:
+        seg = seg[:live] + seg[live:]
+    return seg.T
+
+
+def _reduce_instance_grads_packed(grads, perm, boundaries, compensated: bool = False):
+    """(NUM_FIELDS, exec_cap) slot-aligned grads -> (N, NUM_FIELDS) per
+    gaussian: rows reordered gaussian-major by the binning permutation,
+    then per-gaussian sums as prefix differences at the emission
+    boundaries (emit_cum). Rows past the emitted total, or perm entries
+    past the execution capacity, are masked before the prefix."""
+    live = NUM_USED_FIELDS
+    n = boundaries.shape[0]
+    rows = grads.shape[1]
+    p = perm[:rows].long()
+    d_pre = grads[:live][:, torch.clamp(p, max=rows - 1)]  # (live, rows)
+    idx = torch.arange(rows, device=grads.device)
+    keep = (idx < boundaries[-1]) & (p < rows)
+    d_pre = torch.where(keep[None, :], d_pre, torch.zeros_like(d_pre))
+    seg = _segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
+    return torch.cat([seg, torch.zeros((n, NUM_FIELDS - live), dtype=seg.dtype, device=seg.device)], 1)
+
+
 class BlendGaussiansPacked(torch.autograd.Function):
-    """Stage the sorted fields and composite them with K1. Returns the
-    (T, OUT_ROWS, PIX) tile blocks."""
+    """Stage the sorted fields and composite them with K1; returns the
+    (T, OUT_ROWS, PIX) tile blocks. The backward runs K2 on the cotangent
+    of those blocks and reduces its per-slot rows to d_table, compensated
+    unless `fast_grad`. It needs `perm` (training binning): a render binned
+    with inference=True raises there."""
 
     @staticmethod
     def forward(ctx, table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
-                tile_lo, meta, starts, ends, tiles_x, num_tiles, cap_total):
+                tile_lo, meta, starts, ends, perm, emit_cum, tiles_x,
+                num_tiles, cap_total, fast_grad):
         fields = _build_fields_packed(
             table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tiles_x,
             num_tiles, cap_total,
         )
-        return tiles_packed.forward(fields, tile_lo, meta, starts, ends)
+        out = tiles_packed.forward(fields, tile_lo, meta, starts, ends)
+        ctx.save_for_backward(fields, tile_lo, meta, starts, ends, out, perm, emit_cum)
+        ctx.fast_grad = fast_grad
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("training slice: K2")
+        fields, tile_lo, meta, starts, ends, out, perm, emit_cum = ctx.saved_tensors
+        if perm is None:
+            raise RuntimeError(
+                "this render was binned with inference=True, which skips the "
+                "gaussian-major permutation the backward reduces through; "
+                "render with inference=False to take gradients"
+            )
+        grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, out, grad_out)
+        d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not ctx.fast_grad)
+        return (d_table,) + (None,) * 14
 
 
 def blend_gaussians_packed(table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
-                           tile_lo, meta, starts, ends, tiles_x: int,
-                           num_tiles: int, cap_total: int) -> torch.Tensor:
+                           tile_lo, meta, starts, ends, perm, emit_cum,
+                           tiles_x: int, num_tiles: int, cap_total: int,
+                           fast_grad: bool) -> torch.Tensor:
     return BlendGaussiansPacked.apply(
         table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tile_lo, meta,
-        starts, ends, tiles_x, num_tiles, cap_total,
+        starts, ends, perm, emit_cum, tiles_x, num_tiles, cap_total, fast_grad,
     )
 
 
@@ -169,9 +237,12 @@ def render(
         meta,
         binning.starts,
         binning.ends,
+        binning.perm,
+        binning.emit_cum,
         settings.tiles_x,
         settings.num_tiles,
         cap,
+        settings.fast_grad,
     )
     # SOFT clamp: tiles whose sentinel lies past the executed chunks never
     # flushed; they degrade to background instead of unwritten memory

@@ -1,14 +1,21 @@
-"""Packed forward compositing: the K1 wrapper and its plain version
-(port of c3dgs_tpu/render/tiles_packed.py; the backward K2 comes with the
-training slice).
+"""Packed compositing kernels: the K1 forward and K2 backward wrappers and
+their plain versions (port of c3dgs_tpu/render/tiles_packed.py).
 
-`forward` launches the hand-written Hopper kernel
-(csrc/tiles_packed_fwd.cu) for CUDA tensors and `forward_plain` for CPU
-tensors; there is no fallback from one to the other. Both take the staged
-sorted fields of rasterizer._build_fields_packed plus the binning's
-tile_lo / meta / starts / ends and return (T, OUT_ROWS, PIX) blocks:
-rows 0-2 color without background, 3 exp(lt_final), 4 lt_final, 5 the
-freeze start slot (meta[3] if never frozen), 6-7 zero.
+`forward` / `backward` launch the hand-written Hopper kernels
+(csrc/tiles_packed_fwd.cu, csrc/tiles_packed_bwd.cu) for CUDA tensors and
+`forward_plain` / `backward_plain` for CPU tensors; there is no fallback
+from one to the other. Both families take the staged sorted fields of
+rasterizer._build_fields_packed plus the binning's tile_lo / meta /
+starts / ends.
+
+The forward returns (T, OUT_ROWS, PIX) blocks: rows 0-2 color without
+background, 3 exp(lt_final), 4 lt_final, 5 the freeze start slot (meta[3]
+if never frozen), 6-7 zero. The backward takes those blocks and the
+cotangent blocks (rows 0-2 dL/dC, 3 dL/dT_final) and returns (NUM_FIELDS,
+exec_cap) per-slot gradient rows: 0-1 dL/dx, dL/dy (tile-local means), 2-4
+dL/d(a', b', c') (the moments mxx, mxy, myy), 5 dL/dopacity, 6-8 dL/drgb,
+9 the pre-sort slot of each walked slot, 10-15 zero. Tiles that never
+flushed on an exec-clamped frame keep all-zero rows.
 """
 from __future__ import annotations
 
@@ -18,8 +25,8 @@ from typing import Optional
 import torch
 
 from .. import kernels
-from .binning import CHUNK, NUM_FIELDS
-from .tiles import LOG_EXIT_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, STOP_T
+from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW
+from .tiles import LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, STOP_T
 from .types import TILE_X, TILE_Y
 
 TID_ROW = 9  # staged field row carrying the lane's tile id (f32 exact)
@@ -43,12 +50,33 @@ FORWARD_KERNEL = kernels.register(
     )
 )
 
+BACKWARD_KERNEL = kernels.register(
+    kernels.Kernel(
+        name="tiles_packed_bwd",
+        source="tiles_packed_bwd.cu",
+        symbol="c3dgs_tiles_packed_bwd",
+        argtypes=(
+            ctypes.c_void_p,  # fields
+            ctypes.c_longlong,  # field / grad row stride (exec_cap)
+            ctypes.c_void_p,  # starts
+            ctypes.c_void_p,  # ends
+            ctypes.c_void_p,  # meta
+            ctypes.c_void_p,  # totals (K1's blocks)
+            ctypes.c_void_p,  # grad_out (cotangent blocks)
+            ctypes.c_void_p,  # grads out (zero-initialized)
+            ctypes.c_int,  # num_tiles
+            ctypes.c_void_p,  # stream
+        ),
+        replaces="c3dgs_tpu/render/tiles_packed.py:353",
+    )
+)
+
 
 def _check(fields, tile_lo, meta, starts, ends) -> int:
     """Validate the kernel's inputs; returns the tile count."""
     if (TILE_X, TILE_Y) != (32, 16):
         raise NotImplementedError(
-            f"the packed forward kernel supports 32x16 tiles only, got {TILE_X}x{TILE_Y}"
+            f"the packed kernels support 32x16 tiles only, got {TILE_X}x{TILE_Y}"
         )
     dev = fields.device
     for name, t, dt in (
@@ -207,3 +235,189 @@ def forward_plain(
             carry_c = carry_c + col[0]
             carry_lt = carry_lt + ltg[0]
     return out
+
+
+def _check_blocks(totals, grad_out, num_tiles: int, dev) -> None:
+    for name, t in (("totals", totals), ("grad_out", grad_out)):
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
+        if t.shape != (num_tiles, OUT_ROWS, PIX):
+            raise ValueError(f"{name} must be ({num_tiles}, {OUT_ROWS}, {PIX}), got {tuple(t.shape)}")
+
+
+def backward(fields, tile_lo, meta, starts, ends, totals, grad_out) -> torch.Tensor:
+    """Packed backward: (NUM_FIELDS, exec_cap) per-slot gradient rows.
+
+    `totals` are K1's blocks for these fields, `grad_out` the cotangent of
+    those blocks (autograd may hand over an expanded or strided tensor; it
+    is made contiguous here). The kernel computes in fp32 in both fast_grad
+    modes: fast_grad only drops the compensation of the reduction that
+    follows. CUDA tensors launch K2 (or raise); CPU tensors run
+    backward_plain."""
+    num_tiles = _check(fields, tile_lo, meta, starts, ends)
+    grad_out = grad_out.contiguous()
+    _check_blocks(totals, grad_out, num_tiles, fields.device)
+    if fields.device.type == "cpu":
+        return backward_plain(fields, tile_lo, meta, starts, ends, totals, grad_out)
+    if fields.device.type != "cuda":
+        raise ValueError(f"unsupported device {fields.device}")
+    _check_tile_range(meta.tolist(), num_tiles)
+    grads = torch.zeros((NUM_FIELDS, fields.shape[1]), dtype=torch.float32, device=fields.device)
+    launch_backward(fields, meta, starts, ends, totals, grad_out, grads)
+    return grads
+
+
+def launch_backward(fields, meta, starts, ends, totals, grad_out, grads) -> None:
+    """One K2 launch on the current stream into the zero-initialized
+    `grads`, on tensors that `backward` has validated (timing loops call
+    it directly)."""
+    with torch.cuda.device(fields.device):
+        BACKWARD_KERNEL.launch(
+            fields.data_ptr(),
+            fields.shape[1],
+            starts.data_ptr(),
+            ends.data_ptr(),
+            meta.data_ptr(),
+            totals.data_ptr(),
+            grad_out.data_ptr(),
+            grads.data_ptr(),
+            starts.shape[0],
+            torch.cuda.current_stream(fields.device).cuda_stream,
+        )
+
+
+def _group_last(grp: torch.Tensor) -> torch.Tensor:
+    """(CHUNK,) index of the last lane of each lane's group (groups are
+    contiguous runs of equal grp)."""
+    lane = torch.arange(grp.shape[0], device=grp.device)
+    tail = torch.ones_like(grp, dtype=torch.bool)
+    tail[:-1] = grp[:-1] != grp[1:]
+    big = torch.full_like(lane, grp.shape[0])
+    return torch.flip(torch.cummin(torch.flip(torch.where(tail, lane, big), (0,)), 0).values, (0,))
+
+
+def _in_group_suffix(x64: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """(PIX, CHUNK) float64 -> inclusive in-group suffix sums: lane i gets
+    the sum over lanes i..last[i]."""
+    rev = torch.flip(torch.cumsum(torch.flip(x64, (1,)), 1), (1,))  # sum over j >= i
+    rev = torch.cat([rev, torch.zeros_like(rev[:, :1])], 1)
+    return rev[:, :-1] - rev[:, last + 1]
+
+
+def backward_plain(
+    fields, tile_lo, meta, starts, ends, totals, grad_out, stats: Optional[dict] = None
+) -> torch.Tensor:
+    """The plain version of K2: a chunk-wise replica of the TPU walk, an
+    algorithm independent of the kernel's per-tile walk.
+
+    Aligned 128-slot chunks in REVERSE, vectorized over (PIX, CHUNK):
+    lanes group by tid - tile_lo[c]; groups 0..ng-1 flush in this chunk and
+    start from their tile's lt_final (K1 row 4) with an empty suffix, the
+    trailing group ng continues the carried walk (lt and the suffix S of
+    the later chunks). Within a group the entering log-transmittance and
+    the strict suffix of w*(dL/dC . rgb) are float64 suffix sums. Lanes at
+    or past their tile's freeze slot (K1 row 5) are dead. The tile left
+    open by the last executed chunk (never flushed on a clamped frame)
+    carries zeros, so its lanes get all-zero rows, and unflushed tiles'
+    blocks are never read. A chunk with no flush whose open tile froze
+    before it is a no-op and is skipped.
+
+    `stats`, if given, accumulates `pairs` (pixel, live lane) evaluations
+    and `alpha_pairs`, those with alpha > 0."""
+    num_tiles = _check(fields, tile_lo, meta, starts, ends)
+    grad_out = grad_out.contiguous()
+    _check_blocks(totals, grad_out, num_tiles, fields.device)
+    meta_host = meta.tolist()
+    _check_tile_range(meta_host, num_tiles)
+    nchunks, _, tile_end, cap = meta_host
+    lo_all = tile_lo.tolist()
+    n_flushed = lo_all[nchunks]
+    dev = fields.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    grads = torch.zeros((NUM_FIELDS, fields.shape[1]), **f32)
+    frz_all = totals[:n_flushed, 5, 0].tolist()
+    # per flushed tile: dL/dC rows, dL/dT_final * T_final, lt_final
+    gc_all = grad_out[:n_flushed, 0:3]
+    gtt_all = grad_out[:n_flushed, 3] * totals[:n_flushed, 3]
+    lt_all = totals[:n_flushed, 4]
+    walk_end = torch.minimum(ends[:n_flushed].to(torch.float64), totals[:n_flushed, 5, 0].double())
+    pix = torch.arange(PIX, device=dev)
+    px = (pix % TILE_X).to(torch.float32)[:, None]  # (PIX, 1) tile-local
+    py = (pix // TILE_X).to(torch.float32)[:, None]
+    lane = torch.arange(CHUNK, device=dev)
+    # the open tile's state; the tile open after the last executed chunk
+    # never flushed: zero cotangent, zero walk
+    open_gc = torch.zeros((3, PIX), **f32)
+    open_gtt = torch.zeros(PIX, **f32)
+    open_frz = float(cap)
+    carry_lt = torch.zeros(PIX, **f64)
+    carry_s = torch.zeros(PIX, **f64)
+    for c in range(nchunks - 1, -1, -1):
+        lo, hi = lo_all[c], lo_all[c + 1]
+        ng = hi - lo
+        if ng == 0 and c * CHUNK >= open_frz:
+            continue
+        f = fields[:, c * CHUNK : (c + 1) * CHUNK]
+        tid = f[TID_ROW]
+        grp = torch.clamp(tid - float(lo), 0, ng).long()
+        slot = (c * CHUNK + lane).to(torch.float32)
+        # per-group tables: flushed groups 0..ng-1, then the open tile
+        g_gc = torch.cat([gc_all[lo:hi], open_gc[None]])  # (ng+1, 3, PIX)
+        g_gtt = torch.cat([gtt_all[lo:hi], open_gtt[None]])  # (ng+1, PIX)
+        g_lt = torch.cat([lt_all[lo:hi].double(), carry_lt[None]])
+        g_s = torch.cat([torch.zeros((ng, PIX), **f64), carry_s[None]])
+        g_frz = torch.tensor(frz_all[lo:hi] + [open_frz], **f32)
+        dead = (tid >= float(tile_end)) | (slot >= g_frz[grp])
+        op = torch.where(dead, torch.zeros_like(f[5]), f[5])
+        dx = f[0] - px  # (PIX, CHUNK)
+        dy = f[1] - py
+        power = torch.clamp((f[2] * dx + f[3] * dy) * dx + (f[4] * dy) * dy, max=0.0)
+        raw = op * torch.exp(power)
+        capped = raw > MAX_ALPHA
+        alpha = torch.where(raw >= MIN_ALPHA, torch.clamp(raw, max=MAX_ALPHA), torch.zeros_like(raw))
+        if stats is not None:
+            stats["pairs"] = stats.get("pairs", 0) + PIX * int((op > 0).sum())
+            stats["alpha_pairs"] = stats.get("alpha_pairs", 0) + int((alpha > 0).sum())
+        tlog = torch.log1p(-alpha)
+        last = _group_last(grp)
+        # entering log-transmittance: walk back from the group's anchor
+        # through the inclusive in-group suffix of log(1 - alpha)
+        pre64 = g_lt[grp].T - _in_group_suffix(tlog.double(), last)
+        pre = pre64.float()
+        live = pre + tlog >= LOG_STOP_T
+        w = torch.where(live, alpha * torch.exp(pre), torch.zeros_like(alpha))
+        gc = g_gc[grp]  # (CHUNK, 3, PIX)
+        gc_dot = gc[:, 0].T * f[6] + gc[:, 1].T * f[7] + gc[:, 2].T * f[8]
+        gwc = w * gc_dot
+        gwc64 = gwc.double()
+        strict = _in_group_suffix(gwc64, last) - gwc64 + g_s[grp].T
+        s_all = (strict + g_gtt[grp].T.double()).float()
+        g_power = gwc - s_all * (alpha / (1.0 - alpha))
+        g_power = torch.where(capped, torch.zeros_like(g_power), g_power)
+
+        def colsum(x):
+            return x.double().sum(0).float()
+
+        gdx = g_power * dx
+        gdy = g_power * dy
+        s0, mx, my = colsum(g_power), colsum(gdx), colsum(gdy)
+        mxx, mxy, myy = colsum(gdx * dx), colsum(gdx * dy), colsum(gdy * dy)
+        g_rgb = [colsum(gc[:, k].T * w) for k in range(3)]
+        op_e = torch.clamp(torch.where(tid >= float(tile_end), torch.zeros_like(f[5]), f[5]), min=1e-12)
+        g_x = 2.0 * f[2] * mx + f[3] * my
+        g_y = 2.0 * f[4] * my + f[3] * mx
+        rows = torch.stack([g_x, g_y, mxx, mxy, myy, s0 / op_e, *g_rgb])
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        grads[:NUM_USED_FIELDS, sl] = rows
+        if n_flushed:  # row 9: the pre-sort slot of every slot a tile's walk covers
+            t_safe = torch.clamp(tid.long(), max=n_flushed - 1)
+            walked = (tid < float(n_flushed)) & (slot.double() < walk_end[t_safe])
+            grads[NUM_USED_FIELDS, sl] = torch.where(walked, f[OFFSET_ROW], torch.zeros_like(f[OFFSET_ROW]))
+        # carries for chunk c-1, whose open tile is this chunk's group 0
+        carry_lt = pre64[:, 0]
+        g0 = (grp == 0).to(torch.float64)
+        carry_s = (gwc64 * g0).sum(1) + (carry_s if ng == 0 else 0.0)
+        if ng >= 1:
+            open_gc, open_gtt, open_frz = gc_all[lo], gtt_all[lo], frz_all[lo]
+    return grads

@@ -12,8 +12,8 @@ from typing import Tuple
 
 # Tile shape: 32x16 (the packed kernels' PIX = 512). Env-overridable for
 # tile-shape experiments (C3DGS_TILE_X/Y, read once at import); the CUDA
-# forward kernel supports only the default and its wrapper raises on any
-# other shape.
+# kernels support only the default and their wrappers raise on any other
+# shape.
 TILE_X = int(_os.environ.get("C3DGS_TILE_X", 32))  # pixels per tile, x
 TILE_Y = int(_os.environ.get("C3DGS_TILE_Y", 16))  # pixels per tile, y
 # binning slot-domain ceiling: presort slots ride f32 staged-field rows and
@@ -41,7 +41,8 @@ class RasterSettings:
     # per-instance gradient buffer capacity; in packed mode it doubles as
     # the EXECUTION capacity of the forward kernel. 0 => the slot domain
     grad_capacity: int = 0
-    # single-pass backward contractions (the training slice's K2)
+    # the reduction after the packed backward (K2) skips its error
+    # compensation; K2 itself computes in fp32 in both modes
     fast_grad: bool = True
     # packed-chunk kernels (render/tiles_packed.py); False selects the
     # per-tile kernel family, which this port does not have yet

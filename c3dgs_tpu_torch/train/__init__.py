@@ -1,1 +1,1 @@
-"""Trainer of the port (render_scene only so far)."""
+"""Training of the port: render_scene, train_step with Adam, densification."""

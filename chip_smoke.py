@@ -21,11 +21,29 @@ Phases (any failed check raises, and the script exits non-zero):
   5. where a bench-frame render spends its time: each stage of the
      render path timed with CUDA events, and the profiler's device time by
      kernel name;
-  6. the `kernels` JSON line, the card line, and the final status line.
+  6. gradients on the card: the CUDA render's gradients (means, cov,
+     opacity, extrinsic, colors or SH) on five small scenes against the
+     port's oracle under autograd on the card and against the port's CPU
+     path; a clamped frame's gradients against the CPU path; the SSIM
+     gradient at 1080p against float64;
+  7. K2 against its plain version at the bench frame (phase 3's staged
+     fields and K1 blocks, the cotangent of bench.py's L1 loss against a
+     zero image) and on the freeze and boundary scenes; K2's time, its plain
+     version's time, its bound, a bitwise repeat, and the reduction's error
+     per column against a float64 index_add in both fast_grad modes;
+  8. fwd+bwd at the bench frame (bench.py's metric: one forward and the
+     L1 loss's gradients with respect to the 7 scene parameters), its
+     stage breakdown and the profiler's device busy share;
+  9. train: the 300k scene with quantization and SH degree 3 through
+     create_train_state, 10 train_steps, densify_step, grow_capacity,
+     reset_opacity_step and 2 more steps, with every kernel count reset
+     just before and read just after;
+ 10. the `kernels` JSON line, the card line, and the final status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -37,13 +55,16 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from c3dgs_tpu_torch import kernels
+from c3dgs_tpu_torch.config import OptimizationParams
 from c3dgs_tpu_torch.eval import metrics
 from c3dgs_tpu_torch.models import gaussians
-from c3dgs_tpu_torch.ops import quat
+from c3dgs_tpu_torch.ops import losses, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
-from c3dgs_tpu_torch.render.capacity import CapacityPolicy
+from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.train import trainer
@@ -56,6 +77,8 @@ SFU_PER_SM_CLOCK = 16  # special-function (MUFU) results per SM per clock
 LOG_EXIT_T = math.log(1e-6)
 DEVICE = "cuda"
 BENCH_N = 300_000  # bench.py's gaussian count
+GRAD_TOL = 5e-4  # normalized gradient bar, tests/test_render.py:150
+EV_ID = [0, 0, 0, 1, 0, 0, 0]  # identity camera at the origin
 
 
 def log(msg: str = "") -> None:
@@ -100,16 +123,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
 
 # ------------------------------------------------------------------ scenes
 def small_scene(n=300, seed=0):
-    """tests/test_render.py::make_scene with SH."""
+    """tests/test_render.py::make_scene: means, scales, quats, opacity,
+    colors and the SH of its SH variant."""
     rng = np.random.default_rng(seed)
     means = rng.normal(size=(n, 3)).astype(np.float32) * 0.8
     means[:, 2] += 4.0
     scales = np.exp(rng.normal(size=(n, 3)).astype(np.float32) * 0.5 - 2.5)
     quats = rng.normal(size=(n, 4)).astype(np.float32)
     opacity = (1 / (1 + np.exp(-rng.normal(size=n)))).astype(np.float32)
-    rng.random(size=(n, 3))  # the recipe's colors draw, unused with SH
+    colors = rng.random(size=(n, 3)).astype(np.float32)
     shs = rng.normal(size=(n, 16, 3)).astype(np.float32) * 0.3
-    return means, scales, quats, opacity, shs
+    return means, scales, quats, opacity, colors, shs
 
 
 def freeze_scenes():
@@ -188,7 +212,7 @@ def phase_build():
 
 def phase_small():
     log("== phase 2: small scene (300 splats, SH 3, 64x48) on the card")
-    means, scales, quats, opacity, shs = small_scene()
+    means, scales, quats, opacity, _, shs = small_scene()
     settings = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=3)
     bg = torch.tensor([0.2, 0.1, 0.4])
     ev = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32)
@@ -299,9 +323,10 @@ def phase_k1(scene, card_clock_mhz):
         log(f"  bench frame: {need} instances -> slot bucket {settings.instance_capacity}; "
             f"grad_total {grad_need} -> execution bucket {settings.grad_capacity}; culled {int(chk['culled'])}")
         deg = trainer.settings_with_degree(settings, scene.active_sh_degree)
-        args = staged_inputs(
-            scene.get_xyz(), scene.get_covariance(), scene.get_opacity()[:, 0], ev, deg, shs=scene.get_features()
-        )
+        prep = preprocess(scene.get_xyz(), scene.get_covariance(), scene.get_opacity()[:, 0], ev, deg,
+                          scene.get_features())
+        b = bin_gaussians(prep, deg)
+        args, complete = k1_args(prep, b, deg, scene.capacity)
         stats = {}
         err, mism, out_k, _ = compare_k1("bench frame 1920x1080", args, stats)
 
@@ -350,7 +375,7 @@ def phase_k1(scene, card_clock_mhz):
         "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations",
         "library_ms": None,  # no single PyTorch call composites tiles
-    }, settings
+    }, settings, SimpleNamespace(args=args, out=out_k, b=b, deg=deg, complete=complete, walked=walked)
 
 
 def phase_serve(scene, settings):
@@ -391,9 +416,8 @@ def phase_serve(scene, settings):
     assert results["num_views"] == 8
     for name, v in results["per_view"].items():
         assert v["psnr"] > 60 and v["ssim"] > 0.9999, f"{name}: served image differs from its first render: {v}"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was never launched on the main path"
     assert launches["tiles_packed_fwd"] == results["num_renders"], "K1 launches != renders"
+    assert launches["tiles_packed_bwd"] == 0, "serving took a gradient"
     return launches, per_view_ms
 
 
@@ -458,6 +482,395 @@ def phase_breakdown(scene, settings):
         log(f"    {dev_time(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+# ------------------------------------------------------------ gradients
+def grad_scenes():
+    """The gradient phase's small scenes: tests/test_render.py::make_scene
+    (150 splats with colors, and its SH variant) at 64x48, the occluder and
+    wall freeze scenes, and the sentinel-at-chunk-boundary scene of
+    tests/test_render.py:230 (600 splats at 256x192). name -> (means, cov,
+    opacity, colors or SH, is_sh, settings kwargs)."""
+    small = dict(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=3)
+    cov6 = lambda s, q: quat.cov6_from_scaling_rotation(torch.as_tensor(s), torch.as_tensor(q)).numpy()
+    means, scales, quats, opacity, colors, shs = small_scene(150)
+    out = {
+        "make_scene": (means, cov6(scales, quats), opacity, colors, False, small),
+        "make_scene_sh": (means, cov6(scales, quats), opacity, shs, True, small),
+    }
+    for name, (means, scales, quats, opacity, colors) in freeze_scenes().items():
+        out[name] = (means, cov6(scales, quats), opacity, colors, False, small)
+    rng = np.random.default_rng(35)
+    n = 600
+    means = rng.normal(size=(n, 3)).astype(np.float32) * 1.2
+    means[:, 2] += 4.0
+    scales = np.exp(rng.normal(size=(n, 3)).astype(np.float32) * 0.6 - 3.6)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    opacity = (1 / (1 + np.exp(-rng.normal(size=n) - 0.5))).astype(np.float32)
+    colors = rng.random(size=(n, 3)).astype(np.float32)
+    out["boundary"] = (means, cov6(scales, quats), opacity, colors, False,
+                       dict(width=256, height=192, tanfovx=math.tan(0.6), tanfovy=math.tan(0.47), sh_degree=0))
+    return out
+
+
+def render_grads(render_fn, sc, settings, device):
+    """Gradients of a seeded linear loss of the image with respect to
+    means, cov, opacity, the extrinsic and the colors or SH."""
+    means, cov, opacity, feats, sh, _ = sc
+    leaves = [torch.tensor(x, dtype=torch.float32, device=device, requires_grad=True)
+              for x in (means, cov, opacity, EV_ID, feats)]
+    kw = {"shs": leaves[4]} if sh else {"colors_precomp": leaves[4]}
+    out = render_fn(*leaves[:4], settings, torch.tensor([0.2, 0.1, 0.4], device=device), **kw)
+    w = np.random.default_rng(7).normal(size=(3, settings.height, settings.width)).astype(np.float32)
+    (torch.as_tensor(w, device=device) * out["render"]).sum().backward()
+    return [x.grad for x in leaves], out
+
+
+def normalized_err(got, ref, floor=1e-3):
+    """max|got - ref| / max(max|ref|, floor); the gradient bar's floor of
+    tests/test_render.py:153 unless told otherwise."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite values")
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), floor)
+
+
+def check_grads(name, got, ref, tol=GRAD_TOL):
+    names = ("means", "cov", "opacity", "extrinsic", "colors/SH")
+    errs = [normalized_err(a, b) for a, b in zip(got, ref)]
+    log(f"  {name}: normalized max err " + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs)))
+    bad = [n for n, e in zip(names, errs) if e > tol]
+    if bad:
+        raise AssertionError(f"{name}: gradients of {bad} exceed {tol:g}")
+
+
+def _conv_forward_flags_only(img, window):
+    """The SSIM convolution as the serving slice had it: cuDNN off around
+    the forward only, so autograd's backward runs under the global flags."""
+    c = img.shape[1]
+    kernel = window.to(img.dtype).expand(c, 1, *window.shape).contiguous()
+    with torch.backends.cudnn.flags(enabled=False):
+        return F.conv2d(img, kernel, padding=window.shape[-1] // 2, groups=c)
+
+
+def ssim_grad(a, b, device, dtype):
+    x = torch.tensor(a, device=device, dtype=dtype, requires_grad=True)
+    losses.ssim(x, torch.tensor(b, device=device, dtype=dtype)).backward()
+    return x.grad
+
+
+def phase_grads():
+    log("== phase 6: gradients on the card (small scenes) and the SSIM gradient")
+    for name, sc in grad_scenes().items():
+        settings = RasterSettings(**sc[5], fast_grad=False)
+        before = tiles_packed.BACKWARD_KERNEL.launches
+        g_card, _ = render_grads(rasterizer.render, sc, settings, DEVICE)
+        torch.cuda.synchronize()
+        assert tiles_packed.BACKWARD_KERNEL.launches == before + 1, "the CUDA render's backward did not launch K2"
+        g_cpu, _ = render_grads(rasterizer.render, sc, settings, "cpu")
+        g_oracle, _ = render_grads(oracle.render_oracle, sc, settings, DEVICE)
+        check_grads(f"{name} vs oracle (card)", g_card, g_oracle)
+        check_grads(f"{name} vs CPU path", g_card, g_cpu)
+    # the clamped frame of tests/test_render.py:510-528
+    sc = grad_scenes()["make_scene"]
+    full = RasterSettings(**sc[5], instance_capacity=1 << 13)
+    _, out = render_grads(rasterizer.render, sc, full, "cpu")
+    clamp = dataclasses.replace(full, grad_capacity=max(int(out["grad_total"]) - 512, 128))
+    g_card, out_c = render_grads(rasterizer.render, sc, clamp, DEVICE)
+    g_cpu, _ = render_grads(rasterizer.render, sc, clamp, "cpu")
+    assert int(out_c["grad_overflow"]) > 0, "the clamped frame did not clamp"
+    check_grads(f"clamped frame (grad_overflow {int(out_c['grad_overflow'])}) vs CPU path", g_card, g_cpu)
+
+    rng = np.random.default_rng(0)
+    a = rng.random(size=(3, 1080, 1920)).astype(np.float32)
+    b = np.clip(a + rng.normal(size=a.shape) * 0.05, 0, 1).astype(np.float32)
+    ref = ssim_grad(a, b, "cpu", torch.float64)  # max|grad| ~6e-7: no floor
+    err = normalized_err(ssim_grad(a, b, DEVICE, torch.float32), ref, floor=0.0)
+    err_cpu = normalized_err(ssim_grad(a, b, "cpu", torch.float32), ref, floor=0.0)
+    repaired = losses._depthwise_conv_same
+    losses._depthwise_conv_same = _conv_forward_flags_only
+    try:
+        err_before = normalized_err(ssim_grad(a, b, DEVICE, torch.float32), ref, floor=0.0)
+    finally:
+        losses._depthwise_conv_same = repaired
+    log(f"  SSIM gradient at 1080p vs float64 (normalized max err): card {err:.3e}, CPU fp32 {err_cpu:.3e}; "
+        f"with cuDNN's backward under the global flags (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}) "
+        f"{err_before:.3e}")
+    if err > 2e-5:
+        raise AssertionError(f"SSIM gradient on the card is not fp32: {err:.3e}")
+
+
+# ------------------------------------------------------------------- K2
+def l1_cotangent(out_blocks, deg, complete):
+    """The cotangent of bench.py's loss, L1 against a zero image, with
+    respect to K1's blocks (through assemble_image)."""
+    blocks = out_blocks.detach().clone().requires_grad_(True)
+    img, _ = rasterizer.assemble_image(blocks, deg, complete, torch.zeros(3, device=blocks.device))
+    (g,) = torch.autograd.grad(losses.l1_loss(img, torch.zeros_like(img)), blocks)
+    return g.contiguous()
+
+
+def compare_k2(name, args, totals, g, stats=None):
+    """K2 vs backward_plain on identical inputs: rows 0-8 at normalized
+    5e-4 per row, rows 9-15 exact. Returns (max abs err, K2 rows)."""
+    got = tiles_packed.backward(*args, totals, g)
+    torch.cuda.synchronize()
+    ref = tiles_packed.backward_plain(*args, totals, g, stats=stats)
+    torch.cuda.synchronize()
+    errs = [normalized_err(got[r], ref[r]) for r in range(9)]
+    abs_err = float((got[:9] - ref[:9]).abs().max())
+    nonzero = int((got[:9] != 0).any(0).sum())
+    log(f"  {name}: {nonzero} slots with nonzero rows; max abs err {abs_err:.3e}; normalized per row "
+        + " ".join(f"{e:.1e}" for e in errs))
+    if max(errs) > GRAD_TOL or not torch.equal(got[9:], ref[9:]):
+        raise AssertionError(f"{name}: K2 disagrees with its plain version")
+    return abs_err, got
+
+
+def phase_k2(ctx, clock_mhz):
+    log("== phase 7: K2 against its plain version")
+    small = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45))
+    scenes = grad_scenes()
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    for name in ("occluder", "wall", "boundary"):
+        means, cov, opacity, colors, _, kw = scenes[name]
+        st = RasterSettings(**kw) if name == "boundary" else small
+        t = lambda x: torch.as_tensor(x, device=DEVICE)
+        args = staged_inputs(t(means), t(cov), t(opacity), ev, st, colors=t(colors))
+        totals = tiles_packed.forward(*args)
+        g = np.zeros(tuple(totals.shape), np.float32)
+        g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+        compare_k2(f"{name} scene {st.width}x{st.height}", args, totals, torch.as_tensor(g, device=DEVICE))
+
+    fields, tile_lo, meta, starts, ends = args = ctx.args
+    totals = ctx.out
+    g = l1_cotangent(totals, ctx.deg, ctx.complete)
+    stats = {}
+    err, got = compare_k2("bench frame 1920x1080 (L1 cotangent)", args, totals, g, stats)
+    again = tiles_packed.backward(*args, totals, g)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("K2 is not bitwise repeatable")
+    log("  K2 run twice at the bench frame: bitwise equal")
+
+    buf = torch.zeros_like(got)
+    ms = cuda_ms(lambda: tiles_packed.launch_backward(fields, meta, starts, ends, totals, g, buf), reps=20)
+    plain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiles_packed.backward_plain(*args, totals, g)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # the reduction after K2: d_table per column against a float64
+    # index_add over the emitted positions, both fast_grad modes
+    b = ctx.b
+    rows = got.shape[1]
+    total = int(b.emit_cum[-1])
+    perm = b.perm[:rows].long()
+    pos = torch.arange(rows, device=DEVICE)
+    keep = (pos < total) & (perm < rows)
+    owner = torch.searchsorted(b.emit_cum.long(), pos, right=True)
+    d_pre = got[:9].T.double()[torch.clamp(perm, max=rows - 1)]
+    ref = torch.zeros((b.emit_cum.shape[0], 9), dtype=torch.float64, device=DEVICE)
+    ref.index_add_(0, owner[keep], d_pre[keep])
+    red_err = {}
+    for compensated in (False, True):
+        d = rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, compensated)
+        col = (d[:, :9].double() - ref).abs().max(0).values
+        red_err["exact" if compensated else "fast"] = col.tolist()
+        log(f"  d_table vs float64 index_add, {'exact (compensated)' if compensated else 'fast_grad'}: "
+            "max abs err per column " + " ".join(f"{v:.2e}" for v in col.tolist())
+            + f"; column max |value| " + " ".join(f"{v:.2e}" for v in ref.abs().max(0).values.tolist()))
+    red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, False), reps=10)
+
+    # the least time for K2's work at this frame: each walked slot's 10
+    # staged rows read once, 7 block rows per pixel read, the 16 gradient
+    # rows of the execution capacity written; one exp per walked (pixel,
+    # slot) pair, and a log1p, an exp and a reciprocal per pair with
+    # alpha > 0, on the special-function units
+    t = starts.shape[0]
+    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * rows + 2 * 4 * t
+    sfu_ops = stats["pairs"] + 3 * stats["alpha_pairs"]
+    flops = 12 * stats["pairs"] + 40 * stats["alpha_pairs"]
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_sfu = sfu_ops / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    bound = max(t_bytes, t_sfu, t_flops)
+    log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['alpha_pairs']} with alpha > 0")
+    log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
+        f"({sfu_ops} ops at {clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
+    log(f"  K2 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
+        f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
+        f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
+    return {
+        "name": "tiles_packed_bwd",
+        "route": "cuda",
+        "source": "c3dgs_tpu_torch/csrc/tiles_packed_bwd.cu",
+        "replaces": tiles_packed.BACKWARD_KERNEL.replaces,
+        "launches": None,  # filled from the training run
+        "max_abs_err": err,
+        "ms": statistics.median(ms),
+        "plain_ms": statistics.median(plain_ms),
+        "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations",
+        "library_ms": None,  # no single PyTorch call computes the blend's gradient
+    }, statistics.median(red_ms)
+
+
+# -------------------------------------------------------------- fwd+bwd
+def device_busy_ms(fn):
+    """Kernel time the profiler saw during fn() (0.0 if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0]
+    return sum(dev_time(e) for e in rows) / 1e3, sorted(rows, key=dev_time, reverse=True)
+
+
+def phase_fwd_bwd(scene, settings, k2_ms, red_ms):
+    """bench.py's metric on the card: one forward and the gradients of the
+    L1 loss against a zero image with respect to the 7 scene parameters."""
+    log("== phase 8: fwd+bwd at the bench frame (bench.py's metric)")
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    params = list(trainer.scene_params(scene).values())
+    zeros = torch.zeros((3, settings.height, settings.width), device=DEVICE)
+    ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def step(events=None):
+        if events:
+            events[0].record()
+        out = trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
+        loss = losses.l1_loss(out["render"], zeros)
+        if events:
+            events[1].record()
+        grads = torch.autograd.grad(loss, params)
+        if events:
+            events[2].record()
+        return out, grads
+
+    kernels.reset_counts()
+    out, grads = step()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    assert int(out["overflow"]) == 0 and int(out["grad_overflow"]) == 0, "bench frame degraded"
+    assert all(bool(torch.isfinite(x).all()) for x in grads), "non-finite gradients"
+    assert launches == {"tiles_packed_fwd": 1, "tiles_packed_bwd": 1}, launches
+    log(f"  one step: overflow 0, grad_overflow 0, finite gradients; kernel launches {launches}")
+    _, again = step()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("the fwd+bwd gradients are not bitwise repeatable")
+    log("  a second step gives bitwise-equal gradients for all 7 parameters")
+    ms = cuda_ms(step, reps=10)
+    fwd, bwd = [], []
+    for _ in range(5):
+        step(ev_t)
+        ev_t[2].synchronize()
+        fwd.append(ev_t[0].elapsed_time(ev_t[1]))
+        bwd.append(ev_t[1].elapsed_time(ev_t[2]))
+    step_ms = statistics.median(ms)
+    f, b = statistics.median(fwd), statistics.median(bwd)
+    rest = b - k2_ms - red_ms
+    log(f"  fwd+bwd {step_ms:.4f} ms median of {len(ms)} (min {min(ms):.4f})")
+    for name, v in (("forward (render + loss)", f), ("backward, whole", b), ("  K2 (phase 7)", k2_ms),
+                    ("  reduction (phase 7)", red_ms), ("  rest of autograd", rest)):
+        log(f"  {name:26s} {v:9.4f} ms  ({100 * v / step_ms:5.1f}% of the step)")
+    busy, rows = device_busy_ms(step)
+    if not rows:
+        log("  profiler: no device time recorded")
+    else:
+        log(f"  profiler: {busy:.4f} ms of kernel time in one step; busy share {100 * busy / step_ms:.1f}% "
+            f"of the unprofiled {step_ms:.4f} ms")
+        for e in rows[:12]:
+            log(f"    {getattr(e, 'self_device_time_total', 0.0) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+    return step_ms
+
+
+# ---------------------------------------------------------------- train
+def probe_policy(scene, base, ev, bg):
+    """A capacity policy seeded with bench.py's probe-exact buckets for the
+    scene as it is now."""
+    with torch.no_grad():
+        probe = trainer.render_scene(scene, ev, CapacityPolicy().apply(base), bg, device=DEVICE)
+    return CapacityPolicy(initial=int(probe["num_instances"]) + base.num_tiles,
+                          grad_initial=int(probe["grad_total"]))
+
+
+def phase_train(scene, base):
+    log("== phase 9: train the 300k scene (quantization on, SH degree 3)")
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    n = scene.capacity
+    # spare rows for densification, then quantization-aware training
+    tscene = scene.pad_to_capacity(n + 32_768)
+    tscene.quantization = True
+    tscene.update_observers()
+    with torch.no_grad():
+        tscene.opacity += 1.0
+        target = trainer.render_scene(tscene, ev, base, bg, device=DEVICE)["render"].clone()
+        tscene.opacity -= 1.0
+    policy = probe_policy(tscene, base, ev, bg)
+    log(f"  probe-exact buckets: slots {policy.capacity}, execution {policy.grad_capacity}")
+    opt = OptimizationParams()
+    kernels.reset_counts()
+    state = trainer.create_train_state(tscene, opt, spatial_lr_scale=1.0, device=DEVICE)
+    hist, step_ms = [], []
+    probes = 0
+
+    def run(k):
+        # the buckets follow the scene as it trains: the capacity policy
+        # grows them (with its 1.3 headroom) after a step that needed more
+        nonlocal state
+        for _ in range(k):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = trainer.train_step(state, ev, target, policy.apply(base), bg, opt, 1.0, device=DEVICE)
+            b.record()
+            b.synchronize()
+            step_ms.append(a.elapsed_time(b))
+            hist.append((float(m["loss"]), int(m["overflow"]), int(m["grad_overflow"]), int(m["num_instances"]),
+                         policy.capacity, policy.grad_capacity))
+            policy.update(hist[-1][3], hist[-1][1], int(m["grad_total"]), hist[-1][2])
+
+    run(10)
+    log(f"  losses: {[round(h[0], 6) for h in hist]}")
+    accum = state.stats.xyz_gradient_accum / torch.clamp(state.stats.denom, min=1.0)
+    free = int((~state.scene.active).sum())
+    k = min(free // 3, int((accum > 0).sum()) // 4)
+    thr = float(torch.topk(accum, k).values[-1])
+    assert thr > 0, "no splat has a densify gradient"
+    n_before = int(state.scene.num_active)
+    state, dropped = trainer.densify_step(state, 4.0, dataclasses.replace(opt, densify_grad_threshold=thr),
+                                          device=DEVICE)
+    log(f"  densify_step (threshold {thr:.3e}, the {k}-th largest mean gradient; extent 4.0): active "
+        f"{n_before} -> {int(state.scene.num_active)}, rows written into the {free} free rows "
+        f"{int(state.scene.active[n:].sum())}, dropped {int(dropped)}")
+    new_cap = _bucket(state.scene.capacity + 1)
+    state = trainer.grow_capacity(state, new_cap, device=DEVICE)
+    state = trainer.reset_opacity_step(state, device=DEVICE)
+    policy = probe_policy(state.scene, base, ev, bg)
+    probes += 1
+    log(f"  grow_capacity -> {state.scene.capacity}; reset_opacity_step; probe-exact buckets: slots "
+        f"{policy.capacity}, execution {policy.grad_capacity}")
+    run(2)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    log(f"  losses after: {[round(h[0], 6) for h in hist[10:]]}")
+    log(f"  per step (instances, slot bucket, execution bucket): {[(h[3], h[4], h[5]) for h in hist]}")
+    log(f"  kernel launches over {len(hist)} train_steps and {probes} bucket probe: {launches}")
+    log(f"  ms per train_step: {[round(m, 3) for m in step_ms]}; median of steps 2-10 "
+        f"{statistics.median(step_ms[1:10]):.3f}")
+    assert all(math.isfinite(h[0]) for h in hist), "non-finite loss"
+    assert hist[9][0] < hist[0][0], "the loss did not fall over 10 steps"
+    assert all(h[1] == 0 and h[2] == 0 for h in hist), f"overflow in training: {hist}"
+    assert launches["tiles_packed_bwd"] == len(hist), launches
+    assert launches["tiles_packed_fwd"] == len(hist) + probes, launches
+    return launches, statistics.median(step_ms[1:10])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -471,12 +884,18 @@ def main() -> int:
     phase_small()
     scene, knn_s = bench_scene(DEVICE, BENCH_N)
     log(f"  bench scene: {BENCH_N} splats, kNN scale init {knn_s:.2f} s on the card")
-    k1, settings = phase_k1(scene, clock_mhz)
+    k1, settings, ctx = phase_k1(scene, clock_mhz)
     launches, _ = phase_serve(scene, settings)
     k1["launches"] = launches[k1["name"]]
     phase_breakdown(scene, settings)
+    phase_grads()
+    k2, red_ms = phase_k2(ctx, clock_mhz)
+    phase_fwd_bwd(scene, settings, k2["ms"], red_ms)
+    base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
+    train_launches, _ = phase_train(scene, base)
+    k2["launches"] = train_launches[k2["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

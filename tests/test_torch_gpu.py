@@ -1,10 +1,12 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: K1
+and K2 on the small scenes, K2's determinism, the CUDA render's gradients
+against the port's oracle and CPU path, and the SSIM gradient in fp32.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
 (the repo's conftest.py sets JAX up). Here, without a card, its `gpu` tests
 skip. It also holds the seeded test scenes that tests/test_torch_render.py
-feeds to both packages.
+and tests/test_torch_backward.py feed to both packages.
 """
 import math
 
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from c3dgs_tpu_torch.ops import quat
+from c3dgs_tpu_torch.ops import losses, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.preprocess import preprocess
@@ -21,6 +23,7 @@ from c3dgs_tpu_torch.render.types import RasterSettings
 EV = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # the reference's bar, tests/test_render.py:113
 K1_TOL = dict(atol=2e-5, rtol=1e-4)
+GRAD_TOL = 5e-4  # normalized gradient bar, tests/test_render.py:150
 SMALL = dict(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=3)
 
 
@@ -135,7 +138,7 @@ def k1_inputs(sc, kw, device):
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
 
 
 def test_k1_inputs_stage_on_cpu():
@@ -180,3 +183,115 @@ def test_render_on_card_matches_oracle_and_cpu():
     torch.testing.assert_close(out_c["render"], out_o["render"], **IMG_TOL)
     torch.testing.assert_close(out_c["render"].cpu(), out_h["render"], **IMG_TOL)
     torch.testing.assert_close(out_c["final_T"], out_o["final_T"], atol=2e-5, rtol=0)
+
+
+def assert_normalized(got, ref, atol, name="", floor=1e-3):
+    """max|got - ref| <= atol * max(max|ref|, floor); the floor of the
+    gradient bar, tests/test_render.py:153, unless told otherwise."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    scale = max(float(ref.abs().max()), floor)
+    err = float(((got - ref) / scale).abs().max())
+    assert err <= atol and bool(torch.isfinite(got).all()), f"{name}: normalized error {err:.3e}"
+
+
+def k2_inputs(scene, device):
+    """K1's inputs, its blocks and a seeded cotangent (rows 0-3 random,
+    4-7 zero, as assemble_image leaves them) for a small scene."""
+    sc, kw = SCENES[scene]()
+    args = k1_inputs(sc, kw, device)
+    totals = tiles_packed.forward(*args)
+    g = np.zeros(tuple(totals.shape), np.float32)
+    g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+    return args, totals, torch.as_tensor(g, device=device)
+
+
+def test_k2_inputs_run_on_cpu():
+    """The staging these tests feed K2 runs here too, through the wrapper's
+    CPU route (the plain version)."""
+    args, totals, g = k2_inputs("wall", "cpu")
+    grads = tiles_packed.backward(*args, totals, g)
+    assert grads.shape == (16, args[0].shape[1]) and bool(grads[:9].abs().max() > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene", "occluder", "wall", "boundary"])
+def test_k2_cuda_kernel_matches_plain(scene):
+    """K2 on the card against its plain version on identical inputs: rows
+    0-8 at normalized 5e-4 per row, rows 9-15 exact."""
+    _need_card()
+    args, totals, g = k2_inputs(scene, "cuda")
+    before = tiles_packed.BACKWARD_KERNEL.launches
+    got = tiles_packed.backward(*args, totals, g)
+    torch.cuda.synchronize()
+    assert tiles_packed.BACKWARD_KERNEL.launches == before + 1
+    ref = tiles_packed.backward_plain(*args, totals, g)
+    for r in range(9):
+        assert_normalized(got[r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(got[9:], ref[9:])
+
+
+@pytest.mark.gpu
+def test_k2_is_deterministic():
+    _need_card()
+    args, totals, g = k2_inputs("boundary", "cuda")
+    a = tiles_packed.backward(*args, totals, g)
+    b = tiles_packed.backward(*args, totals, g)
+    assert torch.equal(a, b)
+
+
+def render_grads(render_fn, sc, kw, device, wimg=None, **over):
+    """Gradients of sum(wimg * image) (wimg seeded when not given) with
+    respect to means, cov, opacity, the extrinsic, the colors or SH and,
+    through rasterizer.render, a zero viewspace offset (None for the
+    oracle); and the render output."""
+    settings = RasterSettings(**kw, **over)
+    feats = "shs" if sc["shs"] is not None else "colors"
+    leaves = [torch.tensor(sc[k], device=device, requires_grad=True) for k in ("means", "cov", "op")]
+    leaves += [torch.tensor(EV, device=device, requires_grad=True),
+               torch.tensor(sc[feats], device=device, requires_grad=True),
+               torch.zeros((len(sc["means"]), 2), device=device, requires_grad=True)]
+    kwf = {"shs": leaves[4]} if feats == "shs" else {"colors_precomp": leaves[4]}
+    if render_fn is rasterizer.render:
+        kwf["viewspace_offset"] = leaves[5]
+    out = render_fn(*leaves[:4], settings, torch.tensor([0.2, 0.1, 0.4], device=device), **kwf)
+    if wimg is None:
+        wimg = np.random.default_rng(7).normal(size=(3, kw["height"], kw["width"])).astype(np.float32)
+    (torch.as_tensor(wimg, device=device) * out["render"]).sum().backward()
+    return [x.grad for x in leaves], out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene", "make_scene_sh", "wall", "boundary"])
+def test_render_gradients_on_card_match_oracle_and_cpu(scene):
+    _need_card()
+    sc, kw = make_scene(150) if scene == "make_scene" else SCENES[scene]()
+    before = tiles_packed.BACKWARD_KERNEL.launches
+    g_card, _ = render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False)
+    assert tiles_packed.BACKWARD_KERNEL.launches == before + 1
+    g_cpu, _ = render_grads(rasterizer.render, sc, kw, "cpu", fast_grad=False)
+    for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_cpu):
+        assert_normalized(a, b, GRAD_TOL, f"{name} vs CPU path")
+    if scene != "boundary":  # the oracle walks every gaussian per pixel
+        g_oracle, _ = render_grads(oracle.render_oracle, sc, kw, "cuda")
+        for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_oracle):
+            assert_normalized(a, b, GRAD_TOL, f"{name} vs oracle")
+
+
+@pytest.mark.gpu
+def test_ssim_gradient_on_card_is_fp32():
+    """The SSIM gradient at 1080p on the card against a float64 CPU
+    gradient: the depthwise convolution's backward must not run in TF32.
+    Full fp32 itself errs by up to 4.7e-6 of max|grad| on this input (the
+    same comparison in fp32 on the CPU), so the bar is 2e-5; TF32 keeps 10
+    mantissa bits and misses it by orders of magnitude."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    a = rng.random(size=(3, 1080, 1920)).astype(np.float32)
+    b = np.clip(a + rng.normal(size=a.shape) * 0.05, 0, 1).astype(np.float32)
+
+    def grad(x, y, device, dtype):
+        x = torch.tensor(x, device=device, dtype=dtype, requires_grad=True)
+        losses.ssim(x, torch.tensor(y, device=device, dtype=dtype)).backward()
+        return x.grad
+
+    assert_normalized(grad(a, b, "cuda", torch.float32), grad(a, b, "cpu", torch.float64), 2e-5, "ssim grad", floor=0.0)

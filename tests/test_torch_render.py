@@ -270,14 +270,16 @@ def test_render_exec_clamped_frame_degrades_like_jax():
 
 
 def test_render_unported_paths_raise():
+    """The per-tile family (packed=False) is not ported yet; the packed
+    backward is (tests/test_torch_backward.py holds its parity)."""
     sc, kw = make_scene(50)
     targs = (_t(sc["means"]), _t(sc["cov"]), _t(sc["op"]), _t(EV))
     with pytest.raises(NotImplementedError, match="per-tile"):
         trast.render(*targs, TSettings(**kw, packed=False), torch.zeros(3), colors_precomp=_t(sc["colors"]))
     means = targs[0].clone().requires_grad_(True)
     out = trast.render(means, *targs[1:], TSettings(**kw), torch.zeros(3), colors_precomp=_t(sc["colors"]))
-    with pytest.raises(NotImplementedError, match="training slice: K2"):
-        out["render"].sum().backward()
+    out["render"].sum().backward()
+    assert bool(torch.isfinite(means.grad).all()) and float(means.grad.abs().max()) > 0
 
 
 def test_assemble_image_complete_mask_without_bg():
