@@ -25,7 +25,11 @@ def render_full(scene, extrinsic_vector, settings, bg, policy=None, device: Devi
     """Render with an overflow-free guarantee: if the frame's (gaussian,
     tile) instances exceed the capacity bucket, grow it and render again
     (at most 8 tries). The returned dict carries `renders`, the number of
-    renders the frame took."""
+    renders the frame took. Only the slot bucket follows the frame: as in
+    the JAX package the grad bucket stays as the policy has it, which for
+    a forward-only render sizes nothing (a per-tile render's grad_overflow
+    is counted against the settings' grad capacity, the slot domain plus
+    two chunks per tile unless set)."""
     dev = resolve_device(device)
     policy = policy or CapacityPolicy()
     for attempt in range(1, 9):
@@ -52,9 +56,13 @@ def render_and_eval(
     npz_path: Optional[str] = None,
     lpips_fn=None,
     device: DeviceLike = None,
+    packed: bool = True,
 ) -> dict:
     """Per-view PSNR/SSIM (+LPIPS via lpips_fn if given) and their means,
-    in the reference's results.json schema.
+    in the reference's results.json schema. `packed` picks the kernel
+    family (RasterSettings.packed): the packed pair by default, the
+    per-tile pair (K3) when False; both give the same image within the
+    reference's bar.
 
     `cameras` are objects with `intrinsic` (3x3, FoV radians + W/H),
     `extrinsic_vector` (7,), `original_image` (3,H,W) and optionally
@@ -69,7 +77,7 @@ def render_and_eval(
     policy = CapacityPolicy()
     renders = 0
     for i, cam in enumerate(cameras):
-        settings = settings_from_intrinsic(cam.intrinsic, inference=True)
+        settings = settings_from_intrinsic(cam.intrinsic, inference=True, packed=packed)
         out = render_full(scene, cam.extrinsic_vector, settings, bg, policy, device=dev)
         renders += out["renders"]
         img = out["render"]

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is compiled by `nvcc` for sm_90a
 into a shared library under <repo>/build/c3dgs_tpu_torch/ at first use,
 then loaded with ctypes (no PyTorch headers, so a build takes seconds).
-Library names carry a hash of the source and flags, so an edited source is
-rebuilt and concurrent builders never read a half-written file.
+Library names carry a hash of the source, the csrc/ headers it includes
+and the flags, so an edited source or header is rebuilt and a concurrent
+build never reads a half-written file.
 
 Each kernel is one `Kernel` record: its source, its C entry point, the TPU
 kernel it replaces, and a plain integer launch count that its `launch`
@@ -16,6 +17,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,8 +53,27 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(source: str) -> bytes:
+    """The source followed by every csrc/ header it includes with quotes,
+    recursively, each once: an edited header changes the library name of
+    every source that includes it."""
+    seen, order, todo = set(), [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        text = (CSRC / name).read_bytes()
+        order.append(text)
+        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(text))
+    return b"".join(order)
+
+
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(_source_bytes(source) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 

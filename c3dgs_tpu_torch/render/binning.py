@@ -3,13 +3,13 @@ reference's duplicateWithKeys -> radix sort -> identifyTileRanges pipeline
 (rasterizer_impl.cu:70-138, 275-316) as enumeration + one sort.
 
 Every field equals the JAX Binning on the same Preprocessed: frozen slots
-and (next slice) per-slot gradient rows are indexed by sorted slot, so the
-order must match exactly. The TPU workarounds of the JAX module become
+and per-slot gradient rows are indexed by sorted slot, so the order must
+match exactly. The TPU workarounds of the JAX module become
 their plain torch equivalents:
 - the lexicographic (key, payload) sort is ONE stable int64 sort of
   key << 32 | payload (both non-negative int32 values);
 - `_rank_in_sorted` (#{boundaries <= q} by two packed sorts) is
-  torch.searchsorted(..., right=True) over sorted boundaries;
+  torch.searchsorted(..., right=True);
 - quantize_depth runs the same f32 operation order and clamps in int64.
 The tile-sharded `bin_gaussians_routed` comes with the multi-device slice.
 """
@@ -25,6 +25,7 @@ from .types import TILE_X, TILE_Y, RasterSettings
 CHUNK = 128  # slots per aligned chunk of the sorted instance array
 NUM_FIELDS = 16  # staged instance field rows (9 used)
 NUM_USED_FIELDS = 9  # x, y, conic(3), opacity, rgb(3)
+PRESORT_ROW = 9  # per-tile staged field row carrying the pre-sort slot (exact in f32)
 OFFSET_ROW = 10  # table column carrying each gaussian's first emission slot
 
 
@@ -48,6 +49,11 @@ def quantize_depth(depth: torch.Tensor, alive: torch.Tensor, num_tiles: int) -> 
     q = torch.clamp((depth - dmin) / span * float(levels), 0.0, float(levels))
     # final clamp in the integer domain: f32(levels) rounds up to 2^bits
     return torch.clamp(q.to(torch.int64), max=levels)
+
+
+def _rank_in_sorted(boundaries: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """#{boundaries <= q} for every q; `boundaries` ascending."""
+    return torch.searchsorted(boundaries, queries, right=True)
 
 
 def _tile_hit(rows: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor, settings: RasterSettings):
@@ -161,7 +167,7 @@ def _enumerate_slots(ints, floats, cum, total, slots, n: int, settings: RasterSe
     the culled count."""
     num_tiles = settings.num_tiles
     j_bits = _payload_bits(n, num_tiles)
-    gid_k = torch.searchsorted(cum, slots, right=True)
+    gid_k = _rank_in_sorted(cum, slots)
     gid_safe = torch.clamp(gid_k, max=n - 1)
     valid = slots < total
     irow = ints[gid_safe]

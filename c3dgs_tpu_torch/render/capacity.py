@@ -26,8 +26,10 @@ class CapacityPolicy:
         self.headroom = headroom
         self.shrink_patience = shrink_patience
         self._low_count = 0
-        # per-instance gradient / execution capacity; 0 = the slot domain
-        # until a frame reports its true grad_total
+        # per-instance gradient capacity (the packed path's execution
+        # capacity), sized from the grad_total each frame reports in its
+        # kernel family's own layout (per-tile: 128-aligned windows per
+        # tile); 0 = the settings' default until a frame reports it
         self.grad_capacity = max(_bucket(grad_initial), MIN_CAPACITY) if grad_initial else 0
         self._grad_low = 0
 

@@ -1,14 +1,17 @@
-"""Rasterizer: the packed path (port of c3dgs_tpu/render/rasterizer.py).
+"""Rasterizer (port of c3dgs_tpu/render/rasterizer.py).
 
   preprocess -> bin_gaussians -> per_gaussian_table
-  -> blend_gaussians_packed (stage the sorted fields + K1; backward: K2 +
-     the per-slot grad reduction through binning.perm)
+  -> packed=True (the default): blend_gaussians_packed (stage the sorted
+     fields + K1; backward: K2 + the per-slot grad reduction through
+     binning.perm)
+     packed=False: blend_gaussians (stage the sorted fields + K3; backward:
+     K4 + the coverage-aware reduction keyed by each row's pre-sort slot)
   -> assemble_image (tile-space background composite, soft-clamp mask)
 
 Gradients reach every input of `render` by autograd: the blend's backward
 returns d_table, and autograd carries it through per_gaussian_table,
-preprocess and the viewspace offset. The per-tile kernel family
-(`packed=False`, K3/K4) is a later slice.
+preprocess and the viewspace offset. The per-tile backward needs no
+binning.perm, so a render binned with inference=True takes gradients there.
 """
 from __future__ import annotations
 
@@ -16,10 +19,31 @@ from typing import Optional
 
 import torch
 
-from . import tiles_packed
-from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW, bin_gaussians, per_gaussian_table
+from . import tiles, tiles_packed
+from .binning import (
+    CHUNK,
+    NUM_FIELDS,
+    NUM_USED_FIELDS,
+    OFFSET_ROW,
+    PRESORT_ROW,
+    _rank_in_sorted,
+    bin_gaussians,
+    per_gaussian_table,
+)
 from .preprocess import Preprocessed, preprocess
 from .types import TILE_X, TILE_Y, RasterSettings
+
+
+def _build_fields(table: torch.Tensor, gid_sorted: torch.Tensor, j_sorted: torch.Tensor) -> torch.Tensor:
+    """(N, NUM_FIELDS) table -> (NUM_FIELDS, cap) staged instance fields in
+    sorted order for the per-tile kernels: global means, row PRESORT_ROW
+    the pre-sort slot offset[gid] + j (exact in f32 below 2^24). Sentinel
+    and invalid slots carry a real gaussian's fields (gid is clamped): the
+    kernels mask every lane outside its tile's [start, end)."""
+    rows = table[gid_sorted.long()]  # (cap, NUM_FIELDS) one row gather
+    cols = list(rows.unbind(1))
+    cols[PRESORT_ROW] = cols[OFFSET_ROW] + j_sorted.to(rows.dtype)
+    return torch.stack(cols, 0)
 
 
 def _build_fields_packed(
@@ -104,6 +128,84 @@ def _reduce_instance_grads_packed(grads, perm, boundaries, compensated: bool = F
     d_pre = torch.where(keep[None, :], d_pre, torch.zeros_like(d_pre))
     seg = _segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
     return torch.cat([seg, torch.zeros((n, NUM_FIELDS - live), dtype=seg.dtype, device=seg.device)], 1)
+
+
+def _reduce_instance_grads(grads, boundaries, cap: int, grad_lo, grad_hi, partial_coverage: bool,
+                           compensated: bool = False):
+    """(NUM_FIELDS, grad_cap) per-instance grads -> (N, NUM_FIELDS) per
+    gaussian, deterministic and free of scatters: one stable sort of the
+    int32 pre-sort slot keys (row PRESORT_ROW) brings the rows into
+    gaussian-major emission order, one column gather follows, and the
+    per-gaussian sums are prefix differences (_segment_prefix_diff,
+    compensated in exact mode).
+
+    Rows outside [grad_lo, grad_hi) belong to no window of this call (other
+    devices' tiles under tile sharding) and, like the tail lanes the
+    kernels tag with `cap`, key to the sentinel `cap`, which sorts last and
+    is masked. With `partial_coverage` the segment ends are the ranks of
+    the slot-domain boundaries (emit_cum) among the sorted keys, which
+    absorbs the cull's compaction and any partial coverage; otherwise
+    `boundaries` are already the kept-instance counts."""
+    n = boundaries.shape[0]
+    grad_cap = grads.shape[1]
+    live = NUM_USED_FIELDS
+    pos = torch.arange(grad_cap, device=grads.device)
+    covered = (pos >= grad_lo) & (pos < grad_hi)
+    sentinel = torch.full((grad_cap,), cap, dtype=torch.int32, device=grads.device)
+    key = torch.where(covered, grads[PRESORT_ROW].to(torch.int32), sentinel)
+    key = torch.where((key >= 0) & (key < cap), key, sentinel)
+    key_s, idx_s = torch.sort(key, stable=True)
+    # a tile-sharded buffer may be shorter than the slot domain `cap`; a
+    # per-tile one is longer, and at most `cap` of its keys are real
+    key_c = key_s[:cap]
+    d_pre = grads[:live][:, idx_s[:cap]]  # (live, rows) gaussian-major
+    d_pre = torch.where((key_c < cap)[None, :], d_pre, torch.zeros_like(d_pre))
+    end_pos = _rank_in_sorted(key_c, boundaries - 1) if partial_coverage else boundaries
+    seg = _segment_prefix_diff(d_pre, end_pos, end_pos > 0, compensated)
+    return torch.cat([seg, torch.zeros((n, NUM_FIELDS - live), dtype=seg.dtype, device=seg.device)], 1)
+
+
+class BlendGaussians(torch.autograd.Function):
+    """Stage the sorted fields and composite them with K3; returns the
+    (T, OUT_ROWS, PIX) tile blocks of the tiles `tile_ids`. The backward
+    runs K4 on the cotangent of those blocks into a grad_cap-long buffer
+    and reduces its rows to d_table over the coverage [grad_lo, grad_hi),
+    compensated unless `fast_grad`."""
+
+    @staticmethod
+    def forward(ctx, table, gid_sorted, j_sorted, starts, ends, nchunks, grad_base, emit_cum,
+                tile_ids, grad_lo, grad_hi, tiles_x, cap, grad_cap, partial_coverage, fast_grad):
+        fields = _build_fields(table, gid_sorted, j_sorted)
+        out = tiles.forward(fields, tile_ids, starts, ends, nchunks, tiles_x)
+        ctx.save_for_backward(fields, tile_ids, starts, ends, nchunks, grad_base, emit_cum, out)
+        ctx.grad_range = (grad_lo, grad_hi)
+        ctx.statics = (tiles_x, cap, grad_cap, partial_coverage, fast_grad)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        fields, tile_ids, starts, ends, nchunks, grad_base, emit_cum, out = ctx.saved_tensors
+        tiles_x, cap, grad_cap, partial_coverage, fast_grad = ctx.statics
+        grads = tiles.backward(fields, tile_ids, starts, ends, nchunks, grad_base, out, grad_out,
+                               tiles_x, grad_cap)
+        d_table = _reduce_instance_grads(grads, emit_cum, cap, *ctx.grad_range, partial_coverage,
+                                         compensated=not fast_grad)
+        return (d_table,) + (None,) * 15
+
+
+def blend_gaussians(table, gid_sorted, j_sorted, starts, ends, nchunks, grad_base, emit_cum,
+                    tile_ids, grad_range, tiles_x: int, cap: int, grad_cap: int,
+                    partial_coverage: bool, fast_grad: bool) -> torch.Tensor:
+    """Per-tile stage + alpha-composite: (T, OUT_ROWS, PIX) blocks, rows
+    0-2 color without background, 3 final transmittance. tile_ids maps
+    the call's tiles to global tiles (identity when unsharded);
+    grad_range = (lo, hi) is the coverage of the call's grad writes;
+    emit_cum is binning.emit_cum, the slot-domain boundaries the backward's
+    reduction ranks (partial_coverage) or takes as they are."""
+    return BlendGaussians.apply(
+        table, gid_sorted, j_sorted, starts, ends, nchunks, grad_base, emit_cum, tile_ids,
+        grad_range[0], grad_range[1], tiles_x, cap, grad_cap, partial_coverage, fast_grad,
+    )
 
 
 class BlendGaussiansPacked(torch.autograd.Function):
@@ -203,11 +305,6 @@ def render(
     opacity (N,), bg (3,), shs (N,K,3) or colors_precomp (N,3);
     viewspace_offset (N,2) is added to the projected means in NDC*[W/2,H/2]
     units. Returns the image, final_T and the binning counters."""
-    if not settings.packed:
-        raise NotImplementedError(
-            "packed=False renders through the per-tile kernels (K3/K4), which "
-            "arrive with the port's per-tile slice"
-        )
     prep = preprocess(means3d, cov3d, opacity, extrinsic_vector, settings, shs, colors_precomp)
     if viewspace_offset is not None:
         scale = torch.tensor(
@@ -219,6 +316,8 @@ def render(
     table = per_gaussian_table(prep, binning.offset)
     n = means3d.shape[0]
     cap, _ = settings.resolve_caps(n)
+    if not settings.packed:
+        return _render_per_tile(prep, binning, table, settings, bg, cap, settings.resolve_grad_cap(n))
     # execution capacity: the sorted content ends at chunks_exec*CHUNK; a
     # probed grad bucket clamps the executed chunks, counted in grad_overflow
     exec_cap = settings.resolve_grad_cap(n)
@@ -258,6 +357,31 @@ def render(
         "overflow": binning.overflow,
         "grad_total": binning.chunks_exec * CHUNK,
         "grad_overflow": grad_overflow,
+        "clipped": binning.clipped,
+        "culled": binning.culled,
+    }
+
+
+def _render_per_tile(prep, binning, table, settings: RasterSettings, bg, cap: int, grad_cap: int) -> dict:
+    """The per-tile branch of `render` (K3/K4): full coverage of the tile
+    grid, the reducer in partial-coverage mode (exact under full coverage
+    too). Every tile is written, so no completeness mask."""
+    tile_ids = torch.arange(settings.num_tiles, dtype=torch.int32, device=table.device)
+    out_tiles = blend_gaussians(
+        table, binning.gid_sorted, binning.j_sorted, binning.starts, binning.ends, binning.nchunks,
+        binning.grad_base, binning.emit_cum, tile_ids, (0, binning.grad_total), settings.tiles_x,
+        cap, grad_cap, True, settings.fast_grad,
+    )
+    image, final_t = assemble_image(out_tiles, settings, None, bg)
+    return {
+        "render": image,
+        "final_T": final_t,
+        "radii": prep.radius,
+        "visibility_filter": prep.radius > 0,
+        "num_instances": binning.num_instances,
+        "overflow": binning.overflow,
+        "grad_total": binning.grad_total,
+        "grad_overflow": binning.grad_overflow,
         "clipped": binning.clipped,
         "culled": binning.culled,
     }

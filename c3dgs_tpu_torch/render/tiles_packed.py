@@ -26,7 +26,7 @@ import torch
 
 from .. import kernels
 from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW
-from .tiles import LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, STOP_T
+from .tiles import LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, STOP_T, _check_blocks
 from .types import TILE_X, TILE_Y
 
 TID_ROW = 9  # staged field row carrying the lane's tile id (f32 exact)
@@ -235,14 +235,6 @@ def forward_plain(
             carry_c = carry_c + col[0]
             carry_lt = carry_lt + ltg[0]
     return out
-
-
-def _check_blocks(totals, grad_out, num_tiles: int, dev) -> None:
-    for name, t in (("totals", totals), ("grad_out", grad_out)):
-        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
-        if t.shape != (num_tiles, OUT_ROWS, PIX):
-            raise ValueError(f"{name} must be ({num_tiles}, {OUT_ROWS}, {PIX}), got {tuple(t.shape)}")
 
 
 def backward(fields, tile_lo, meta, starts, ends, totals, grad_out) -> torch.Tensor:

@@ -44,8 +44,9 @@ class RasterSettings:
     # the reduction after the packed backward (K2) skips its error
     # compensation; K2 itself computes in fp32 in both modes
     fast_grad: bool = True
-    # packed-chunk kernels (render/tiles_packed.py); False selects the
-    # per-tile kernel family, which this port does not have yet
+    # packed-chunk kernels (render/tiles_packed.py, K1/K2); False selects
+    # the per-tile kernel family (render/tiles.py, K3/K4), whose grad
+    # buffer is grad_capacity rows (cap + 2*128*num_tiles when 0)
     packed: bool = True
     # forward-only rendering: binning reads tile ranges from a sentinel
     # position sort and skips the gaussian-major permutation that only the

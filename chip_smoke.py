@@ -38,7 +38,26 @@ Phases (any failed check raises, and the script exits non-zero):
      create_train_state, 10 train_steps, densify_step, grow_capacity,
      reset_opacity_step and 2 more steps, with every kernel count reset
      just before and read just after;
- 10. the `kernels` JSON line, the card line, and the final status line.
+ 10. K3 (the per-tile forward, packed=False) against its plain version at
+     the bench frame (probe-exact per-tile buckets) and on the occluder,
+     wall and boundary scenes; K3's time, its plain version's time and the
+     frame's bound;
+ 11. K4 (the per-tile backward) against its plain version at the bench
+     frame (bench.py's L1 cotangent) and on the same small scenes, a
+     bitwise repeat, a clamped frame (grad capacity below grad_total) run
+     twice, K4's time, plain time and bound, and the per-tile reduction's
+     error per column against a float64 index_add;
+ 12. serve with packed=False: render_and_eval over the 8 orbit poses,
+     images against phase 4's packed renders, counts reset just before
+     and read just after;
+ 13. per-tile gradients on the card on phase 6's five small scenes against
+     the oracle and the CPU path;
+ 14. fwd+bwd with packed=False at the bench frame, with phase 8's
+     breakdown;
+ 15. train the 300k quantized scene 4 steps with packed=False, counts
+     reset just before and read just after;
+ 16. the `kernels` JSON line (K1-K4), the card line, and the final status
+     line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -62,7 +81,7 @@ from c3dgs_tpu_torch.config import OptimizationParams
 from c3dgs_tpu_torch.eval import metrics
 from c3dgs_tpu_torch.models import gaussians
 from c3dgs_tpu_torch.ops import losses, quat
-from c3dgs_tpu_torch.render import oracle, rasterizer, tiles_packed
+from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
@@ -119,6 +138,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
+
+
+def host_ms(fn, reps: int = 3):
+    """Host-clock times (ms) of fn() between two device syncs: the plain
+    versions, whose Python loops the host bounds."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def roofline(bytes_moved: int, sfu_ops: int, flops: int, clock_mhz: float):
+    """The least time (ms) the card could take for this work: the largest of
+    the bytes over the memory rate, the special-function operations over
+    the SFUs' rate at the card's clock, and the fp32 flops over the fp32
+    peak. Logs the three; returns (bound, what bounds it)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_sfu = sfu_ops / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
+    t_flops = flops / FP32_FLOPS * 1e3
+    log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
+        f"({sfu_ops} ops at {clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
+    return max(t_bytes, t_sfu, t_flops), "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations"
 
 
 # ------------------------------------------------------------------ scenes
@@ -333,13 +378,7 @@ def phase_k1(scene, card_clock_mhz):
         fields, tile_lo, meta, starts, ends = args
         out = torch.empty_like(out_k)
         ms = cuda_ms(lambda: tiles_packed.launch(fields, meta, starts, ends, out), reps=20)
-        plain_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tiles_packed.forward_plain(*args)
-            torch.cuda.synchronize()
-            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = host_ms(lambda: tiles_packed.forward_plain(*args))
 
     # the least time for this frame's work: each staged field slot a tile
     # walks read once (9 f32 rows), starts/ends read, blocks written; every
@@ -351,15 +390,9 @@ def phase_k1(scene, card_clock_mhz):
     walked = int((torch.minimum(frz, ends.long()) - starts.long())[complete].sum())
     t = starts.shape[0]
     bytes_moved = 9 * 4 * walked + 2 * 4 * t + t * 8 * 512 * 4
-    sfu_ops = stats["pairs"] + 2 * stats["alpha_pairs"]
-    flops = 12 * stats["pairs"] + 11 * stats["alpha_pairs"]
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_sfu = sfu_ops / (SMS * SFU_PER_SM_CLOCK * card_clock_mhz * 1e6) * 1e3
-    t_flops = flops / FP32_FLOPS * 1e3
-    bound = max(t_bytes, t_sfu, t_flops)
     log(f"  work: {walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['alpha_pairs']} with alpha > 0")
-    log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
-        f"({sfu_ops} ops at {card_clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
+    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 2 * stats["alpha_pairs"],
+                               12 * stats["pairs"] + 11 * stats["alpha_pairs"], card_clock_mhz)
     log(f"  K1 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3")
     return {
@@ -373,7 +406,7 @@ def phase_k1(scene, card_clock_mhz):
         "ms": statistics.median(ms),
         "plain_ms": statistics.median(plain_ms),
         "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations",
+        "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call composites tiles
     }, settings, SimpleNamespace(args=args, out=out_k, b=b, deg=deg, complete=complete, walked=walked)
 
@@ -418,7 +451,7 @@ def phase_serve(scene, settings):
         assert v["psnr"] > 60 and v["ssim"] > 0.9999, f"{name}: served image differs from its first render: {v}"
     assert launches["tiles_packed_fwd"] == results["num_renders"], "K1 launches != renders"
     assert launches["tiles_packed_bwd"] == 0, "serving took a gradient"
-    return launches, per_view_ms
+    return launches, per_view_ms, cams
 
 
 def phase_breakdown(scene, settings):
@@ -557,18 +590,28 @@ def ssim_grad(a, b, device, dtype):
     return x.grad
 
 
-def phase_grads():
-    log("== phase 6: gradients on the card (small scenes) and the SSIM gradient")
+def small_scene_grads(packed: bool):
+    """The card's render gradients on grad_scenes() against the oracle on
+    the card and the CPU path; the kernel family's forward and backward
+    each launch once per scene."""
+    fwd, bwd = (tiles_packed.FORWARD_KERNEL, tiles_packed.BACKWARD_KERNEL) if packed else \
+        (tiles.FORWARD_KERNEL, tiles.BACKWARD_KERNEL)
     for name, sc in grad_scenes().items():
-        settings = RasterSettings(**sc[5], fast_grad=False)
-        before = tiles_packed.BACKWARD_KERNEL.launches
+        settings = RasterSettings(**sc[5], fast_grad=False, packed=packed)
+        before = (fwd.launches, bwd.launches)
         g_card, _ = render_grads(rasterizer.render, sc, settings, DEVICE)
         torch.cuda.synchronize()
-        assert tiles_packed.BACKWARD_KERNEL.launches == before + 1, "the CUDA render's backward did not launch K2"
+        assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1), \
+            f"the CUDA render did not launch {fwd.name} and {bwd.name} once each"
         g_cpu, _ = render_grads(rasterizer.render, sc, settings, "cpu")
         g_oracle, _ = render_grads(oracle.render_oracle, sc, settings, DEVICE)
         check_grads(f"{name} vs oracle (card)", g_card, g_oracle)
         check_grads(f"{name} vs CPU path", g_card, g_cpu)
+
+
+def phase_grads():
+    log("== phase 6: gradients on the card (small scenes) and the SSIM gradient")
+    small_scene_grads(packed=True)
     # the clamped frame of tests/test_render.py:510-528
     sc = grad_scenes()["make_scene"]
     full = RasterSettings(**sc[5], instance_capacity=1 << 13)
@@ -653,13 +696,7 @@ def phase_k2(ctx, clock_mhz):
 
     buf = torch.zeros_like(got)
     ms = cuda_ms(lambda: tiles_packed.launch_backward(fields, meta, starts, ends, totals, g, buf), reps=20)
-    plain_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tiles_packed.backward_plain(*args, totals, g)
-        torch.cuda.synchronize()
-        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = host_ms(lambda: tiles_packed.backward_plain(*args, totals, g))
 
     # the reduction after K2: d_table per column against a float64
     # index_add over the emitted positions, both fast_grad modes
@@ -690,15 +727,9 @@ def phase_k2(ctx, clock_mhz):
     # alpha > 0, on the special-function units
     t = starts.shape[0]
     bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * rows + 2 * 4 * t
-    sfu_ops = stats["pairs"] + 3 * stats["alpha_pairs"]
-    flops = 12 * stats["pairs"] + 40 * stats["alpha_pairs"]
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_sfu = sfu_ops / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
-    t_flops = flops / FP32_FLOPS * 1e3
-    bound = max(t_bytes, t_sfu, t_flops)
     log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['alpha_pairs']} with alpha > 0")
-    log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
-        f"({sfu_ops} ops at {clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
+    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 3 * stats["alpha_pairs"],
+                               12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
     log(f"  K2 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
         f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
@@ -712,7 +743,7 @@ def phase_k2(ctx, clock_mhz):
         "ms": statistics.median(ms),
         "plain_ms": statistics.median(plain_ms),
         "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations",
+        "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the blend's gradient
     }, statistics.median(red_ms)
 
@@ -730,10 +761,14 @@ def device_busy_ms(fn):
     return sum(dev_time(e) for e in rows) / 1e3, sorted(rows, key=dev_time, reverse=True)
 
 
-def phase_fwd_bwd(scene, settings, k2_ms, red_ms):
+def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, phase=8):
     """bench.py's metric on the card: one forward and the gradients of the
-    L1 loss against a zero image with respect to the 7 scene parameters."""
-    log("== phase 8: fwd+bwd at the bench frame (bench.py's metric)")
+    L1 loss against a zero image with respect to the 7 scene parameters,
+    through the kernel family `settings.packed` selects; bwd_ms and red_ms
+    are its backward kernel's and its reduction's times at this frame."""
+    fwd_k, bwd_k = (tiles_packed.FORWARD_KERNEL, tiles_packed.BACKWARD_KERNEL) if settings.packed else \
+        (tiles.FORWARD_KERNEL, tiles.BACKWARD_KERNEL)
+    log(f"== phase {phase}: fwd+bwd at the bench frame (bench.py's metric), packed={settings.packed}")
     ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
     bg = torch.zeros(3, device=DEVICE)
     params = list(trainer.scene_params(scene).values())
@@ -755,10 +790,10 @@ def phase_fwd_bwd(scene, settings, k2_ms, red_ms):
     kernels.reset_counts()
     out, grads = step()
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values() if k.launches}
     assert int(out["overflow"]) == 0 and int(out["grad_overflow"]) == 0, "bench frame degraded"
     assert all(bool(torch.isfinite(x).all()) for x in grads), "non-finite gradients"
-    assert launches == {"tiles_packed_fwd": 1, "tiles_packed_bwd": 1}, launches
+    assert launches == {fwd_k.name: 1, bwd_k.name: 1}, launches
     log(f"  one step: overflow 0, grad_overflow 0, finite gradients; kernel launches {launches}")
     _, again = step()
     if not all(torch.equal(a, b) for a, b in zip(grads, again)):
@@ -773,10 +808,10 @@ def phase_fwd_bwd(scene, settings, k2_ms, red_ms):
         bwd.append(ev_t[1].elapsed_time(ev_t[2]))
     step_ms = statistics.median(ms)
     f, b = statistics.median(fwd), statistics.median(bwd)
-    rest = b - k2_ms - red_ms
+    rest = b - bwd_ms - red_ms
     log(f"  fwd+bwd {step_ms:.4f} ms median of {len(ms)} (min {min(ms):.4f})")
-    for name, v in (("forward (render + loss)", f), ("backward, whole", b), ("  K2 (phase 7)", k2_ms),
-                    ("  reduction (phase 7)", red_ms), ("  rest of autograd", rest)):
+    for name, v in (("forward (render + loss)", f), ("backward, whole", b), (f"  {bwd_k.name}", bwd_ms),
+                    ("  reduction", red_ms), ("  rest of autograd", rest)):
         log(f"  {name:26s} {v:9.4f} ms  ({100 * v / step_ms:5.1f}% of the step)")
     busy, rows = device_busy_ms(step)
     if not rows:
@@ -871,6 +906,299 @@ def phase_train(scene, base):
     return launches, statistics.median(step_ms[1:10])
 
 
+# ------------------------------------------------------- per-tile: K3
+def per_tile_args(prep, b, settings):
+    """K3's inputs as rasterizer.render stages them with packed=False:
+    (fields, tile_ids, starts, ends, nchunks), and grad_base."""
+    fields = rasterizer._build_fields(per_gaussian_table(prep, b.offset), b.gid_sorted, b.j_sorted)
+    tile_ids = torch.arange(settings.num_tiles, dtype=torch.int32, device=fields.device)
+    return (fields, tile_ids, b.starts, b.ends, b.nchunks), b.grad_base
+
+
+def per_tile_small_scenes():
+    """The occluder, wall and boundary scenes of grad_scenes(), staged for
+    the per-tile kernels: name -> (K3's args, grad_base, settings, the
+    grad capacity)."""
+    out = {}
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    scenes = grad_scenes()
+    for name in ("occluder", "wall", "boundary"):
+        means, cov, opacity, colors, _, kw = scenes[name]
+        st = RasterSettings(**kw, packed=False)
+        t = lambda x: torch.as_tensor(x, device=DEVICE)
+        prep = preprocess(t(means), t(cov), t(opacity), ev, st, None, t(colors))
+        out[name] = (*per_tile_args(prep, bin_gaussians(prep, st), st), st, st.resolve_grad_cap(len(means)))
+    return out
+
+
+def compare_k3(name, args, tiles_x, stats=None):
+    """K3 vs forward_plain on identical inputs: rows 0-4 within 2e-5 abs +
+    1e-4 rel, `stop` (row 5) and rows 6-7 exactly equal."""
+    out_k = tiles.forward(*args, tiles_x)
+    torch.cuda.synchronize()
+    out_p = tiles.forward_plain(*args, tiles_x, stats=stats)
+    torch.cuda.synchronize()
+    nch = args[4].float()
+    stopped = int((out_p[:, 5, 0] < nch).sum())
+    mism = int((out_k[:, 5] != out_p[:, 5]).any(1).sum())
+    log(f"  {name}: {nch.shape[0]} tiles, {int((nch > 0).sum())} with instances, {stopped} stopped early by "
+        f"the saturation exit; {mism} stop mismatches")
+    if not torch.equal(out_k[:, 5:], out_p[:, 5:]):
+        raise AssertionError(f"{name}: K3's stop row or rows 6-7 differ from its plain version")
+    err = check_close(f"{name} rows 0-4", out_k[:, :5], out_p[:, :5], 2e-5, 1e-4)
+    return err, out_k
+
+
+def phase_k3(scene, settings, clock_mhz):
+    log("== phase 10: K3 (per-tile forward) against its plain version")
+    for name, (args, _, st, _) in per_tile_small_scenes().items():
+        compare_k3(f"{name} scene {st.width}x{st.height}", args, st.tiles_x)
+
+    # the bench frame with probe-exact per-tile buckets: phase 3's slot
+    # bucket, and a grad bucket sized from the per-tile grad_total
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    base = dataclasses.replace(settings, packed=False, grad_capacity=0)
+    with torch.no_grad():
+        probe = trainer.render_scene(scene, ev, base, bg, device=DEVICE)
+        need, grad_need = int(probe["num_instances"]), int(probe["grad_total"])
+        settings = CapacityPolicy(initial=need + base.num_tiles, grad_initial=grad_need).apply(base)
+        chk = trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
+        assert int(chk["overflow"]) == 0 and int(chk["grad_overflow"]) == 0, "per-tile bench frame degraded"
+        log(f"  bench frame, packed=False: {need} instances -> slot bucket {settings.instance_capacity}; "
+            f"per-tile grad_total {grad_need} -> grad bucket {settings.grad_capacity}")
+        deg = trainer.settings_with_degree(settings, scene.active_sh_degree)
+        prep = preprocess(scene.get_xyz(), scene.get_covariance(), scene.get_opacity()[:, 0], ev, deg,
+                          scene.get_features())
+        b = bin_gaussians(prep, deg)
+        args, grad_base = per_tile_args(prep, b, deg)
+        stats = {}
+        err, out_k = compare_k3("bench frame 1920x1080", args, deg.tiles_x, stats)
+        out = torch.empty_like(out_k)
+        ms = cuda_ms(lambda: tiles.launch(*args, deg.tiles_x, out), reps=20)
+        plain_ms = host_ms(lambda: tiles.forward_plain(*args, deg.tiles_x))
+
+    # the least time for this frame's work: each instance of a window
+    # walked before `stop` read once (9 f32 rows), the four (T,) int
+    # arrays read, the blocks written; every walked (pixel, instance) pair
+    # one exp, and those with alpha > 0 a log1p and an exp more, on the
+    # special-function units
+    _, _, starts, ends, nch = args
+    stop = out_k[:, 5, 0].long()
+    walked = int(torch.minimum((ends - starts).long(), stop * 128).sum())
+    t = starts.shape[0]
+    bytes_moved = 9 * 4 * walked + 4 * 4 * t + t * 8 * 512 * 4
+    log(f"  work: {walked} walked instances in {int(torch.minimum(stop, nch.long()).sum())} windows, "
+        f"{stats['pairs']} (pixel, instance) pairs, {stats['alpha_pairs']} with alpha > 0")
+    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 2 * stats["alpha_pairs"],
+                               12 * stats["pairs"] + 11 * stats["alpha_pairs"], clock_mhz)
+    log(f"  K3 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
+        f"plain {statistics.median(plain_ms):.1f} ms median of 3")
+    return {
+        "name": "tiles_fwd",
+        "route": "cuda",
+        "source": "c3dgs_tpu_torch/csrc/tiles_fwd.cu",
+        "replaces": tiles.FORWARD_KERNEL.replaces,
+        "launches": None,  # filled from the per-tile serve run
+        "max_abs_err": err,
+        "ms": statistics.median(ms),
+        "plain_ms": statistics.median(plain_ms),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call composites tiles
+    }, settings, SimpleNamespace(args=args, grad_base=grad_base, out=out_k, b=b, deg=deg, walked=walked)
+
+
+# ------------------------------------------------------- per-tile: K4
+def compare_k4(name, args, grad_base, totals, g, tiles_x, grad_cap, stats=None):
+    """K4 vs backward_plain on identical inputs: rows 0-8 at normalized
+    5e-4 per row, rows 9-15 exact. Returns (max abs err, K4 rows)."""
+    got = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
+    torch.cuda.synchronize()
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap, stats=stats)
+    torch.cuda.synchronize()
+    errs = [normalized_err(got[r], ref[r]) for r in range(9)]
+    abs_err = float((got[:9] - ref[:9]).abs().max())
+    nonzero = int((got[:9] != 0).any(0).sum())
+    log(f"  {name}: {nonzero} columns with nonzero rows; max abs err {abs_err:.3e}; normalized per row "
+        + " ".join(f"{e:.1e}" for e in errs))
+    if max(errs) > GRAD_TOL or not torch.equal(got[9:], ref[9:]):
+        raise AssertionError(f"{name}: K4 disagrees with its plain version")
+    return abs_err, got
+
+
+def phase_k4(scene, ctx, clock_mhz):
+    log("== phase 11: K4 (per-tile backward) against its plain version")
+    for name, (args, grad_base, st, grad_cap) in per_tile_small_scenes().items():
+        totals = tiles.forward(*args, st.tiles_x)
+        g = np.zeros(tuple(totals.shape), np.float32)
+        g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+        compare_k4(f"{name} scene {st.width}x{st.height}", args, grad_base, totals, torch.as_tensor(g, device=DEVICE),
+                   st.tiles_x, grad_cap)
+
+    args, grad_base, totals, deg, b = ctx.args, ctx.grad_base, ctx.out, ctx.deg, ctx.b
+    tx = deg.tiles_x
+    grad_cap = deg.resolve_grad_cap(scene.capacity)
+    g = l1_cotangent(totals, deg, None)
+    stats = {}
+    err, got = compare_k4("bench frame 1920x1080 (L1 cotangent)", args, grad_base, totals, g, tx, grad_cap, stats)
+    again = tiles.backward(*args, grad_base, totals, g, tx, grad_cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("K4 is not bitwise repeatable")
+    log("  K4 run twice at the bench frame: bitwise equal")
+
+    # a clamped frame: 64 chunks fewer than the windows need, so windows
+    # of the last tiles clamp into the last chunk and only the TPU grid's
+    # last writer may fill it
+    grad_total = int(b.grad_total)
+    clamp_cap = grad_total - 64 * 128
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tx, clamp_cap)
+    for run in (1, 2):
+        got_c = tiles.backward(*args, grad_base, totals, g, tx, clamp_cap)
+        torch.cuda.synchronize()
+        errs = [normalized_err(got_c[r], ref[r]) for r in range(9)]
+        same = torch.equal(got_c[9:], ref[9:])
+        if run == 2 and not torch.equal(got_c, first):
+            raise AssertionError("K4 on the clamped frame is not bitwise repeatable")
+        first = got_c
+        log(f"  clamped frame (grad_cap {clamp_cap} < grad_total {grad_total}), run {run}: tag rows "
+            f"{'bitwise equal' if same else 'DIFFERENT'} to the plain version's; normalized per row "
+            + " ".join(f"{e:.1e}" for e in errs))
+        if not same or max(errs) > GRAD_TOL:
+            raise AssertionError("K4 on the clamped frame disagrees with its plain version")
+    log("  K4 run twice on the clamped frame: bitwise equal")
+
+    buf = torch.zeros_like(got)
+    ms = cuda_ms(lambda: tiles.launch_backward(*args, grad_base, totals, g, tx, buf), reps=20)
+    plain_ms = host_ms(lambda: tiles.backward_plain(*args, grad_base, totals, g, tx, grad_cap))
+
+    # the per-tile reduction: d_table per column against a float64
+    # index_add over the rows keyed by a pre-sort slot, both modes
+    cap = args[0].shape[1]
+    key = got[9].long()
+    keep = (key >= 0) & (key < cap)
+    owner = torch.searchsorted(b.emit_cum.long(), key[keep], right=True)
+    ref64 = torch.zeros((b.emit_cum.shape[0], 9), dtype=torch.float64, device=DEVICE)
+    ref64.index_add_(0, owner, got[:9, keep].T.double())
+    for compensated in (False, True):
+        d = rasterizer._reduce_instance_grads(got, b.emit_cum, cap, 0, b.grad_total, True, compensated)
+        col = (d[:, :9].double() - ref64).abs().max(0).values
+        log(f"  d_table vs float64 index_add, {'exact (compensated)' if compensated else 'fast_grad'}: "
+            "max abs err per column " + " ".join(f"{v:.2e}" for v in col.tolist())
+            + "; column max |value| " + " ".join(f"{v:.2e}" for v in ref64.abs().max(0).values.tolist()))
+    red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads(got, b.emit_cum, cap, 0, b.grad_total, True),
+                     reps=10)
+
+    # the least time for K4's work at this frame: each walked instance's
+    # 10 staged rows read once, 7 block rows per pixel read, the 16 rows of
+    # the grad buffer written, the five (T,) int arrays read; one exp per
+    # walked (pixel, instance) pair, and a log1p, an exp and a reciprocal
+    # per pair with alpha > 0, on the special-function units
+    t = args[2].shape[0]
+    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * grad_cap + 5 * 4 * t
+    log(f"  work: {ctx.walked} walked instances, {stats['pairs']} (pixel, instance) pairs, "
+        f"{stats['alpha_pairs']} with alpha > 0; grad buffer {grad_cap} columns")
+    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 3 * stats["alpha_pairs"],
+                               12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
+    log(f"  K4 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
+        f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
+        f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
+    return {
+        "name": "tiles_bwd",
+        "route": "cuda",
+        "source": "c3dgs_tpu_torch/csrc/tiles_bwd.cu",
+        "replaces": tiles.BACKWARD_KERNEL.replaces,
+        "launches": None,  # filled from the per-tile training run
+        "max_abs_err": err,
+        "ms": statistics.median(ms),
+        "plain_ms": statistics.median(plain_ms),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the blend's gradient
+    }, statistics.median(red_ms)
+
+
+# ---------------------------------------------------- per-tile: paths
+def phase_serve_per_tile(scene, cams):
+    log("== phase 12: serve the 8 orbit poses with packed=False (render_and_eval, inference=True)")
+    base = settings_from_intrinsic(cams[0].intrinsic, inference=True, packed=False)
+    policy = CapacityPolicy()
+    for cam in cams:  # warm-up: the policy's buckets settle
+        metrics.render_full(scene, cam.extrinsic_vector, base, np.zeros(3), policy, device=DEVICE)
+    errs, per_view_ms = [], []
+    for cam in cams:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = metrics.render_full(scene, cam.extrinsic_vector, base, np.zeros(3), policy, device=DEVICE)
+        b.record()
+        b.synchronize()
+        per_view_ms.append(a.elapsed_time(b))
+        assert int(out["overflow"]) == 0 and int(out["grad_overflow"]) == 0, \
+            f"{cam.image_name}: overflow {int(out['overflow'])}, grad_overflow {int(out['grad_overflow'])}"
+        errs.append(check_close(f"{cam.image_name} per-tile vs packed image", out["render"], cam.original_image,
+                                2e-5, 1e-4))
+    log(f"  8 views: overflow 0, grad_overflow 0; max |per-tile - packed| {max(errs):.3e}")
+    log(f"  per-view ms: {[round(m, 3) for m in per_view_ms]}; median {statistics.median(per_view_ms):.3f}")
+    kernels.reset_counts()
+    results = metrics.render_and_eval(scene, cams, device=DEVICE, packed=False)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    log(f"  render_and_eval: psnr {[v['psnr'] for v in results['per_view'].values()]}")
+    log(f"  renders {results['num_renders']}; kernel launches {launches}")
+    assert results["num_views"] == 8
+    for name, v in results["per_view"].items():
+        assert v["psnr"] > 60 and v["ssim"] > 0.9999, f"{name}: per-tile image differs from the packed one: {v}"
+    assert launches["tiles_fwd"] == results["num_renders"], "K3 launches != renders"
+    assert launches["tiles_packed_fwd"] == 0 and launches["tiles_bwd"] == 0, launches
+    return launches
+
+
+def phase_grads_per_tile():
+    log("== phase 13: per-tile gradients on the card (packed=False, small scenes)")
+    small_scene_grads(packed=False)
+
+
+def phase_train_per_tile(scene, base, steps=4):
+    log(f"== phase 15: train the 300k scene with packed=False ({steps} steps, quantization on, SH degree 3)")
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    tscene = scene.pad_to_capacity(scene.capacity + 1024)
+    tscene.quantization = True
+    tscene.update_observers()
+    with torch.no_grad():
+        tscene.opacity += 1.0
+        target = trainer.render_scene(tscene, ev, base, bg, device=DEVICE)["render"].clone()
+        tscene.opacity -= 1.0
+    policy = probe_policy(tscene, base, ev, bg)
+    log(f"  probe-exact buckets: slots {policy.capacity}, per-tile grad {policy.grad_capacity}")
+    opt = OptimizationParams()
+    kernels.reset_counts()
+    state = trainer.create_train_state(tscene, opt, spatial_lr_scale=1.0, device=DEVICE)
+    hist, step_ms = [], []
+    for _ in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = trainer.train_step(state, ev, target, policy.apply(base), bg, opt, 1.0, device=DEVICE)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        hist.append((float(m["loss"]), int(m["overflow"]), int(m["grad_overflow"])))
+        policy.update(int(m["num_instances"]), hist[-1][1], int(m["grad_total"]), hist[-1][2])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    log(f"  losses: {[round(h[0], 6) for h in hist]}")
+    log(f"  kernel launches over {steps} train_steps: {launches}")
+    log(f"  ms per train_step: {[round(m, 3) for m in step_ms]}; median of steps 2-{steps} "
+        f"{statistics.median(step_ms[1:]):.3f}")
+    assert all(math.isfinite(h[0]) for h in hist), "non-finite loss"
+    assert hist[-1][0] < hist[0][0], "the loss did not fall"
+    assert all(h[1] == 0 and h[2] == 0 for h in hist), f"overflow in training: {hist}"
+    assert launches["tiles_bwd"] == steps and launches["tiles_fwd"] == steps, launches
+    assert launches["tiles_packed_fwd"] == 0 and launches["tiles_packed_bwd"] == 0, launches
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -885,7 +1213,7 @@ def main() -> int:
     scene, knn_s = bench_scene(DEVICE, BENCH_N)
     log(f"  bench scene: {BENCH_N} splats, kNN scale init {knn_s:.2f} s on the card")
     k1, settings, ctx = phase_k1(scene, clock_mhz)
-    launches, _ = phase_serve(scene, settings)
+    launches, _, cams = phase_serve(scene, settings)
     k1["launches"] = launches[k1["name"]]
     phase_breakdown(scene, settings)
     phase_grads()
@@ -894,8 +1222,15 @@ def main() -> int:
     base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
     train_launches, _ = phase_train(scene, base)
     k2["launches"] = train_launches[k2["name"]]
+    # the per-tile family (packed=False)
+    k3, settings_pt, ctx_pt = phase_k3(scene, settings, clock_mhz)
+    k4, red_pt_ms = phase_k4(scene, ctx_pt, clock_mhz)
+    k3["launches"] = phase_serve_per_tile(scene, cams)[k3["name"]]
+    phase_grads_per_tile()
+    phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, phase=14)
+    k4["launches"] = phase_train_per_tile(scene, dataclasses.replace(base, packed=False))[k4["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

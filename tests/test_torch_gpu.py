@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: K1
-and K2 on the small scenes, K2's determinism, the CUDA render's gradients
-against the port's oracle and CPU path, and the SSIM gradient in fp32.
+and K2 (packed) and K3 and K4 (per-tile) on the small scenes, K2's and
+K4's determinism (K4's on a clamped frame too), the CUDA render's
+gradients against the port's oracle and CPU path in both kernel families,
+and the SSIM gradient in fp32.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from c3dgs_tpu_torch.ops import losses, quat
-from c3dgs_tpu_torch.render import oracle, rasterizer, tiles_packed
+from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings
@@ -239,6 +241,114 @@ def test_k2_is_deterministic():
     assert torch.equal(a, b)
 
 
+def k3_inputs(sc, kw, device, **over):
+    """The port's own staged per-tile inputs on `device`: K3's (fields,
+    tile_ids, starts, ends, nchunks), then grad_base and the settings."""
+    t = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    settings = RasterSettings(**kw, packed=False, **over)
+    prep = preprocess(t(sc["means"]), t(sc["cov"]), t(sc["op"]), t(EV), settings, t(sc["shs"]), t(sc["colors"]))
+    b = bin_gaussians(prep, settings)
+    fields = rasterizer._build_fields(per_gaussian_table(prep, b.offset), b.gid_sorted, b.j_sorted)
+    tile_ids = torch.arange(settings.num_tiles, dtype=torch.int32, device=device)
+    return (fields, tile_ids, b.starts, b.ends, b.nchunks), b.grad_base, settings
+
+
+def k4_inputs(scene, device, **over):
+    """K3's inputs, grad_base, K3's blocks, a seeded cotangent and the grad
+    capacity."""
+    sc, kw = SCENES[scene]()
+    args, grad_base, settings = k3_inputs(sc, kw, device, **over)
+    totals = tiles.forward(*args, settings.tiles_x)
+    g = np.zeros(tuple(totals.shape), np.float32)
+    g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+    grad_cap = settings.resolve_grad_cap(len(sc["means"]))
+    return args, grad_base, totals, torch.as_tensor(g, device=device), settings.tiles_x, grad_cap
+
+
+def test_k3_k4_inputs_run_on_cpu():
+    """The per-tile staging these tests feed K3 and K4 runs here too,
+    through the wrappers' CPU route (the plain versions); the wall scene's
+    saturation exit skips windows."""
+    args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs("wall", "cpu")
+    assert totals.shape == (args[1].shape[0], 8, 512)
+    assert bool((totals[:, 5, 0] < args[4].float()).any())
+    grads = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
+    assert grads.shape == (16, grad_cap) and bool(grads[:9].abs().max() > 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene_sh", "occluder", "wall", "boundary"])
+def test_k3_cuda_kernel_matches_plain(scene):
+    """K3 on the card against its plain version on identical staged
+    fields: rows 0-4 at atol 2e-5 / rtol 1e-4, `stop` and rows 6-7 exact."""
+    _need_card()
+    sc, kw = SCENES[scene]()
+    args, _, settings = k3_inputs(sc, kw, "cuda")
+    before = tiles.FORWARD_KERNEL.launches
+    out_k = tiles.forward(*args, settings.tiles_x)
+    torch.cuda.synchronize()
+    assert tiles.FORWARD_KERNEL.launches == before + 1
+    out_p = tiles.forward_plain(*args, settings.tiles_x)
+    torch.testing.assert_close(out_k[:, :5], out_p[:, :5], **K1_TOL)
+    assert torch.equal(out_k[:, 5:], out_p[:, 5:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene", "occluder", "wall", "boundary"])
+def test_k4_cuda_kernel_matches_plain(scene):
+    """K4 on the card against its plain version on identical inputs: rows
+    0-8 at normalized 5e-4 per row, rows 9-15 exact."""
+    _need_card()
+    args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs(scene, "cuda")
+    before = tiles.BACKWARD_KERNEL.launches
+    got = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
+    torch.cuda.synchronize()
+    assert tiles.BACKWARD_KERNEL.launches == before + 1
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap)
+    for r in range(9):
+        assert_normalized(got[r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(got[9:], ref[9:])
+
+
+def clamped_subset(device):
+    """The wall scene's tiles up to the one with the most windows, staged
+    as a tile-sharded call (tile_ids and grad_base of the subset), with a
+    grad capacity that clamps that tile's windows 1..: the TPU grid's last
+    writer is its window 1, not its last. Returns K4's inputs."""
+    args, _, totals, g, tiles_x, _ = k4_inputs("wall", device)
+    t_max = int(torch.argmax(args[4]))
+    sub = tuple(x[: t_max + 1].contiguous() for x in args[1:])
+    nch = sub[3]
+    grad_base = ((torch.cumsum(nch, 0) - nch) * 128).to(torch.int32)
+    grad_cap = int(grad_base[t_max]) + 256
+    return (args[0], *sub), grad_base, totals[: t_max + 1].contiguous(), g[: t_max + 1].contiguous(), tiles_x, grad_cap
+
+
+def test_clamped_subset_stages_on_cpu():
+    """The clamped inputs of the card test below, through the CPU route:
+    the clamped tile has several windows and the writer is its window 1."""
+    args, grad_base, totals, g, tiles_x, grad_cap = clamped_subset("cpu")
+    t, w = tiles.last_chunk_writer(args[4], grad_base, grad_cap)
+    assert (t, w) == (args[4].shape[0] - 1, 1) and int(args[4][t]) >= 3
+    grads = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
+    assert grads.shape == (16, grad_cap) and bool(torch.isfinite(grads).all())
+
+
+@pytest.mark.gpu
+def test_k4_clamped_frame_is_deterministic():
+    """A clamped call: every clamped window but the TPU grid's last writer
+    skips the last chunk, so two K4 runs are bitwise equal and their tags
+    equal the plain version's exactly."""
+    _need_card()
+    args, grad_base, totals, g, tiles_x, grad_cap = clamped_subset("cuda")
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap)
+    runs = [tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    for r in range(9):
+        assert_normalized(runs[0][r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(runs[0][9:], ref[9:])
+
+
 def render_grads(render_fn, sc, kw, device, wimg=None, **over):
     """Gradients of sum(wimg * image) (wimg seeded when not given) with
     respect to means, cov, opacity, the extrinsic, the colors or SH and,
@@ -269,6 +379,25 @@ def test_render_gradients_on_card_match_oracle_and_cpu(scene):
     g_card, _ = render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False)
     assert tiles_packed.BACKWARD_KERNEL.launches == before + 1
     g_cpu, _ = render_grads(rasterizer.render, sc, kw, "cpu", fast_grad=False)
+    for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_cpu):
+        assert_normalized(a, b, GRAD_TOL, f"{name} vs CPU path")
+    if scene != "boundary":  # the oracle walks every gaussian per pixel
+        g_oracle, _ = render_grads(oracle.render_oracle, sc, kw, "cuda")
+        for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_oracle):
+            assert_normalized(a, b, GRAD_TOL, f"{name} vs oracle")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene", "wall", "boundary"])
+def test_per_tile_render_gradients_on_card_match_oracle_and_cpu(scene):
+    """packed=False on the card: K3 and K4 launch once each, and the
+    gradients match the CPU path and the oracle."""
+    _need_card()
+    sc, kw = make_scene(150) if scene == "make_scene" else SCENES[scene]()
+    before = (tiles.FORWARD_KERNEL.launches, tiles.BACKWARD_KERNEL.launches)
+    g_card, _ = render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False, packed=False)
+    assert (tiles.FORWARD_KERNEL.launches, tiles.BACKWARD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    g_cpu, _ = render_grads(rasterizer.render, sc, kw, "cpu", fast_grad=False, packed=False)
     for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_cpu):
         assert_normalized(a, b, GRAD_TOL, f"{name} vs CPU path")
     if scene != "boundary":  # the oracle walks every gaussian per pixel

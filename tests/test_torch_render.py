@@ -101,17 +101,26 @@ def test_preprocess_matches_jax(scene):
 
 
 # --------------------------------------------------------------- binning
-@pytest.mark.parametrize("inference", [True, False])
-@pytest.mark.parametrize("scene", ["make_scene", "wall", "boundary"])
-def test_binning_matches_jax_exactly(scene, inference):
+# (scene, inference, packed); the packed=False cases size the per-tile
+# grad buffer, the one Binning field that depends on `packed`
+_BINNING_CASES = [
+    pytest.param(scene, inference, packed, id=f"{scene}-{inference}" + ("" if packed else "-per_tile"))
+    for packed in (True, False)
+    for inference in (True, False)
+    for scene in ("make_scene", "wall", "boundary")
+]
+
+
+@pytest.mark.parametrize("scene,inference,packed", _BINNING_CASES)
+def test_binning_matches_jax_exactly(scene, inference, packed):
     """Fed the JAX Preprocessed, every Binning field is equal. The port's
     inference branch carries no perm (its forward-only graph never reads
     it, as XLA drops it from the JAX graph)."""
     sc, kw = SCENES[scene]()
-    js = JSettings(**kw, inference=inference)
+    js = JSettings(**kw, inference=inference, packed=packed)
     prep = jax_prep(sc, js)
     bj = _jit_bin(prep, js)
-    bt = tbinning.bin_gaussians(as_torch_prep(prep), TSettings(**kw, inference=inference))
+    bt = tbinning.bin_gaussians(as_torch_prep(prep), TSettings(**kw, inference=inference, packed=packed))
     for name in bj._fields:
         b = getattr(bt, name)
         if name == "perm" and inference:
@@ -269,17 +278,20 @@ def test_render_exec_clamped_frame_degrades_like_jax():
     np.testing.assert_allclose(img, np.asarray(cj["render"]), **IMG_TOL)
 
 
-def test_render_unported_paths_raise():
-    """The per-tile family (packed=False) is not ported yet; the packed
-    backward is (tests/test_torch_backward.py holds its parity)."""
+@pytest.mark.parametrize("packed", [True, False])
+def test_render_backpropagates_on_both_kernel_families(packed):
+    """Both kernel families render and back-propagate finite, nonzero
+    gradients (tests/test_torch_backward.py and tests/test_torch_tiles.py
+    hold their parity); the per-tile backward needs no binning.perm, so an
+    inference=True binning takes gradients there too."""
     sc, kw = make_scene(50)
     targs = (_t(sc["means"]), _t(sc["cov"]), _t(sc["op"]), _t(EV))
-    with pytest.raises(NotImplementedError, match="per-tile"):
-        trast.render(*targs, TSettings(**kw, packed=False), torch.zeros(3), colors_precomp=_t(sc["colors"]))
-    means = targs[0].clone().requires_grad_(True)
-    out = trast.render(means, *targs[1:], TSettings(**kw), torch.zeros(3), colors_precomp=_t(sc["colors"]))
-    out["render"].sum().backward()
-    assert bool(torch.isfinite(means.grad).all()) and float(means.grad.abs().max()) > 0
+    for inference in ((False, True) if not packed else (False,)):
+        means = targs[0].clone().requires_grad_(True)
+        out = trast.render(means, *targs[1:], TSettings(**kw, packed=packed, inference=inference), torch.zeros(3),
+                           colors_precomp=_t(sc["colors"]))
+        out["render"].sum().backward()
+        assert bool(torch.isfinite(means.grad).all()) and float(means.grad.abs().max()) > 0
 
 
 def test_assemble_image_complete_mask_without_bg():

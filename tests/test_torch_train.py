@@ -146,10 +146,14 @@ def test_adam_on_injected_gradients_matches_jax(rng):
 
 
 # ----------------------------------------------------------- train_step
-@pytest.mark.parametrize("quantization", [False, True])
-def test_train_step_matches_jax(quantization):
+def train_step_parity(quantization: bool, steps: int = 3, **over):
+    """train_step of both packages over `steps` steps from the same toy
+    scene, with the RasterSettings overrides `over`: losses, counters, the
+    gradients recovered from Adam's first moment, densify statistics and
+    observers."""
+    jset, tset = JSettings(**KW, **over), RasterSettings(**KW, **over)
     js = jax_toy_scene(quantization=quantization)
-    jtarget = jtrainer.render_scene(js.replace(opacity=js.opacity + 1.0), jnp.asarray(EV), JSettings(**KW),
+    jtarget = jtrainer.render_scene(js.replace(opacity=js.opacity + 1.0), jnp.asarray(EV), jset,
                                     jnp.asarray(BG))["render"]
     target = np.array(jtarget)
     ts = carry_over(js)
@@ -157,9 +161,9 @@ def test_train_step_matches_jax(quantization):
     tstate = trainer.create_train_state(ts, OptimizationParams(), 1.0, **CPU)
     jmu_prev = {k: 0.0 for k in trainer.PARAM_FIELDS}
     tmu_prev = dict(jmu_prev)
-    for step in range(3):
-        jstate, jm = jtrainer.train_step(jstate, jnp.asarray(EV), jtarget, JSettings(**KW), jnp.asarray(BG), JOpt(), 1.0)
-        tstate, tm = trainer.train_step(tstate, EV, target, SET, BG, OptimizationParams(), 1.0, **CPU)
+    for step in range(steps):
+        jstate, jm = jtrainer.train_step(jstate, jnp.asarray(EV), jtarget, jset, jnp.asarray(BG), JOpt(), 1.0)
+        tstate, tm = trainer.train_step(tstate, EV, target, tset, BG, OptimizationParams(), 1.0, **CPU)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
         for k in ("num_instances", "overflow", "grad_total", "grad_overflow"):
             assert int(tm[k]) == int(jm[k]), k
@@ -177,6 +181,11 @@ def test_train_step_matches_jax(quantization):
     for name in tgauss.QUANT_FIELDS:
         for a, b in zip(tstate.scene.observer(name), getattr(jstate.scene.quant, name)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+@pytest.mark.parametrize("quantization", [False, True])
+def test_train_step_matches_jax(quantization):
+    train_step_parity(quantization)
 
 
 def test_quantized_scene_gets_gradient_on_every_field():
