@@ -33,61 +33,134 @@
 //           0 where op*exp(power) > 0.99;   then S += gwc
 // and per slot the sums over the tile's 512 pixels: dL/drgb = sum dL/dC*w,
 // s0 = sum g_pow, mx, my = sum g_pow*dx, g_pow*dy, and the second moments;
-// g_x = 2a'mx + b'my, g_y = 2c'my + b'mx. The TPU's fast_grad mode is a
-// bf16-MXU precision trade; here both modes compute this in fp32 and
-// fast_grad only drops the compensation of the reduction that follows.
+// g_x = 2a'mx + b'my, g_y = 2c'my + b'mx. fp32 with accurate expf/log1pf
+// and --fmad=false; the TPU's fast_grad mode is a bf16-MXU precision trade,
+// and here fast_grad only drops the compensation of the reduction that
+// follows. One CTA walks its tile whole, so the TPU walk's cross-chunk
+// carries, slim block regrouping and chunk_map compaction are not needed.
 //
-// Design. One CTA per 32x16 tile, one thread per pixel (as K1). The CTA
-// stages its slots from min(ends[t], freeze[t]) - 1 down to starts[t] into
-// shared memory in batches of 64 (x, y, a', b', c', op, r, g, b, pre-sort
-// slot) and each thread walks a batch back to front with S and lt in
-// registers. The TPU walk's cross-chunk carries, its slim block regrouping
-// and its chunk_map compaction are not needed: a tile is walked whole by
-// one CTA, so the sentinel-on-lane-0 handoff of tiles_packed.py:984-992
-// cannot arise. The per-slot sums are deterministic and free of atomics: a
-// warp-shuffle tree per slot and value (a warp whose lanes all have
-// alpha = 0 writes zeros and skips its shuffles), per-warp partials in
-// shared memory (16 warps x 9 values x 64 slots, 36 KB), then one sum over
-// the 16 warps in a fixed order. Two runs give bitwise-equal gradients.
+// Bound on the card. chip_smoke.py's 1080p bench frame (300k splats; H100
+// 80GB HBM3 at 700 W, max SM clock 1980 MHz) walks 3.35e8 (pixel, slot)
+// pairs, 6.2e7 with alpha > 0: one exp per pair plus a log1p, an exp and a
+// reciprocal per alpha > 0 pair, ~5.2e8 special-function operations,
+// ~0.125 ms; ~0.13 GB, ~0.04 ms at 3.35 TB/s. chip_smoke.py computes each
+// run's bound from that run's counts.
 //
-// Bound on the card. chip_smoke.py's 1080p bench frame (300k splats, 4,080
-// tiles; PR 1's chip run on an H100 80GB HBM3 at 700 W) walks 3.35e8
-// (pixel, slot) pairs, 6.2e7 of them with alpha > 0: one exp per pair plus
-// a log1p, an exp and a reciprocal per alpha > 0 pair, ~5.2e8
-// special-function operations on 132 SMs x 16 a clock at 1980 MHz,
-// ~0.13 ms. Bytes are ~0.13 GB (10 field rows of the walked slots, 7
-// block rows per pixel, 16 gradient rows of the execution capacity),
-// ~0.04 ms at 3.35 TB/s. So the kernel is bound by special-function
-// operations; chip_smoke.py computes each run's bound from that run's own
-// counts. This first version adds ~45 shuffles per slot and warp for the
-// sums and makes no attempt at load balance across heavy tiles.
+// Design for the card. The first version ran one thread per pixel (16 warps per
+// tile) and summed each slot's 9 values by 9 five-step shuffle trees in
+// every warp with a live lane: 45 shuffles per (slot, 32-pixel row), 2.1e8
+// at the bench frame, ~0.8 ms of the SMs' shuffle rate in its 1.77 ms; each
+// (slot, warp) also read 10 scalar fields from shared memory. Now:
+//   - 256 threads per tile, 2 pixels per thread (tiles_packed_common.cuh:
+//     warp w owns a 16x4 region, its pixel k the 8x4 block k of it). A
+//     thread first adds its 2 pixels' 9 values in registers (pixel order).
+//   - The warp's 9 sums by one butterfly reduce-scatter: 5 + 3 + 2 + 1
+//     shuffles halve the values a lane holds at each step and a last one
+//     joins lane pairs, 12 per (slot, warp) in place of 45, and only where
+//     the warp's 64 pixels hold an alpha > 0. Value k ends on a fixed lane
+//     (scatter_lane_value), and the 9 lanes holding values store them with
+//     one store instruction; a (slot, warp) with no alpha > 0 stores zeros.
+//   - The 8 warps' partial sums are added per slot in warp order after the
+//     batch, one thread per slot, which then writes the slot's 10 rows
+//     (coalesced along the slots). The order is fixed everywhere: two runs
+//     give bitwise-equal rows, and there are no atomics.
+//   - Fields are read as float4s over 4 consecutive slots of a field row,
+//     from a two-deep ring of batches (cut at the global 128-slot
+//     boundaries) filled by bulk async copies on mbarriers: batch b+1's 10
+//     row copies are issued when batch b starts.
+//   - A slot whose power is below -5.55 with opacity <= 1 has alpha 0 in
+//     every version; its exp is skipped (as in K1).
+//   - The walk is bound by latency, not issue: each warp steps through its
+//     slots one at a time, with the alpha > 0 work of each pixel behind its
+//     own branch. So the CTA shape was chosen by measurement for residency
+//     (chip_smoke.py times it; PERF.md): 3 CTAs per SM (at most 80
+//     registers) of 8 warps; 47.4 KB of static shared memory each (the ring
+//     and the partials), below the 48 KB that would need a dynamic
+//     allocation. 4 pixels per thread held 16 warps per SM, 1 pixel per
+//     thread needed 16 partial rows per slot; both were slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiles_packed_common.cuh"
+
 namespace {
 
-constexpr int TILE_X = 32;
-constexpr int PIX = 512;  // 32 x 16 pixels, one thread each
-constexpr int WARPS = PIX / 32;
-constexpr int CHUNK = 128;
-constexpr int OUT_ROWS = 8;
-constexpr int BATCH = 64;
+using namespace c3dgs;
+
+constexpr int WARPS = THREADS / 32;
 constexpr int STAGED = 10;  // x, y, a', b', c', opacity, r, g, b, pre-sort slot
 constexpr int OFFSET_ROW = 10;  // fields row holding the pre-sort slot
 constexpr int NSUM = 9;  // rgb x3, s0, mx, my, mxx, mxy, myy
-constexpr float MIN_ALPHA = 1.0f / 255.0f;
-constexpr float MAX_ALPHA = 0.99f;
+constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
 constexpr float LOG_STOP_T = -9.210340371976182f;  // log(1e-4)
-constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-  return v;
+// one step of the reduce-scatter: the lower half of each lane group keeps
+// lo, the upper half hi, each adding its partner's copy
+__device__ __forceinline__ float fold(float lo, float hi, bool upper, int mask) {
+  const float keep = upper ? hi : lo;
+  const float send = upper ? lo : hi;
+  return keep + __shfl_xor_sync(FULL, send, mask);
 }
 
-__global__ void __launch_bounds__(PIX)
+// The warp's sums of v[0..8], scattered: the returned value is the sum of
+// v[scatter_lane_value(lane >> 1)] over all 32 lanes (junk where that is
+// -1). Lane bit 4 splits the values {0-4 | 5-8}, bit 3 {first 3 | last 2}
+// of those, bit 2 {first 2 | last}, bit 1 {first | second}; bit 0 joins
+// the pair. 12 shuffles in a fixed order.
+__device__ __forceinline__ float reduce_scatter9(const float (&v)[NSUM], int lane) {
+  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4, u1 = lane & 2;
+  float a[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) a[i] = fold(v[i], i + 5 < NSUM ? v[i + 5] : 0.f, u4, 16);
+  float b[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b[i] = fold(a[i], i + 3 < 5 ? a[i + 3] : 0.f, u3, 8);
+  const float c0 = fold(b[0], b[2], u2, 4);
+  const float c1 = fold(b[1], 0.f, u2, 4);
+  const float d = fold(c0, c1, u1, 2);
+  return d + __shfl_xor_sync(FULL, d, 1);
+}
+
+// value index held by lanes 2m and 2m+1 after reduce_scatter9, -1 for
+// none: the table {0, 1, 2, -, 3, 4, -, -, 5, 6, 7, -, 8, -, -, -} as one
+// nibble per m (15 for none)
+__device__ __forceinline__ int scatter_lane_value(int m) {
+  const int v = static_cast<int>((0xFFF8F765FF43F210ull >> (4 * m)) & 15ull);
+  return v == 15 ? -1 : v;
+}
+
+// Per-pixel walk state: tile-local coordinates, dL/dC, dL/dT_final *
+// T_final, lt and the strict suffix S.
+struct Pixel {
+  float px, py, gc0, gc1, gc2, gtt, lt, S;
+};
+
+// One pixel's step back over slot j, where its alpha > 0: lt and S move
+// back, and the pixel's 9 values are added to v.
+__device__ __forceinline__ void walk_back(Pixel& q, const SlotGroup& sg, int j, float alpha, float raw,
+                                          float dx, float dy, float (&v)[NSUM]) {
+  const float tlog = log1pf(-alpha);
+  const float pre = q.lt - tlog;
+  q.lt = pre;
+  const float w = pre + tlog >= LOG_STOP_T ? alpha * expf(pre) : 0.f;
+  const float gwc = w * (q.gc0 * sg.r[j] + q.gc1 * sg.g[j] + q.gc2 * sg.bl[j]);
+  float gp = gwc - (q.S + q.gtt) * (alpha / (1.f - alpha));
+  if (raw > MAX_ALPHA) gp = 0.f;
+  q.S += gwc;
+  const float gdx = gp * dx, gdy = gp * dy;
+  v[0] += q.gc0 * w;
+  v[1] += q.gc1 * w;
+  v[2] += q.gc2 * w;
+  v[3] += gp;
+  v[4] += gdx;
+  v[5] += gdy;
+  v[6] += gdx * dx;
+  v[7] += gdx * dy;
+  v[8] += gdy * dy;
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
 tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
                         const int* __restrict__ starts,
                         const int* __restrict__ ends,
@@ -95,13 +168,13 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
                         const float* __restrict__ totals,
                         const float* __restrict__ gout,
                         float* __restrict__ grads) {
-  __shared__ float sf[STAGED][BATCH];
-  __shared__ float part[WARPS][NSUM][BATCH];
-  __shared__ float sums[NSUM][BATCH];
+  __shared__ __align__(128) float sf[2][STAGED][CHUNK];
+  __shared__ float part[WARPS * NSUM][PART_LD];  // row warp*9 + value
+  __shared__ __align__(8) uint64_t bar[2];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int e = ends[t];  // the tile's sentinel slot
   if (e >= meta[0] * CHUNK) return;  // never flushed: blocks unwritten
   const int s = starts[t];
@@ -109,87 +182,97 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
   const float* g = gout + static_cast<long long>(t) * OUT_ROWS * PIX;
   const int frz = static_cast<int>(blk[5 * PIX]);  // uniform over the tile
   const int walk_end = min(e, frz);
-  const float px = static_cast<float>(p % TILE_X);
-  const float py = static_cast<float>(p / TILE_X);
-  const float gc0 = g[p], gc1 = g[PIX + p], gc2 = g[2 * PIX + p];
-  const float gtt = g[3 * PIX + p] * blk[3 * PIX + p];
-  float lt = blk[4 * PIX + p];
-  float S = 0.f;
+  if (walk_end <= s) return;  // nothing walked: the rows stay zero
 
-  for (int hi = walk_end; hi > s; hi -= BATCH) {
-    const int lo = max(s, hi - BATCH);
-    const int nb = hi - lo;
-    __syncthreads();  // every thread is done with the previous batch
-    for (int i = p; i < STAGED * BATCH; i += PIX) {
-      const int f = i / BATCH, l = i % BATCH;
-      const int row = f == STAGED - 1 ? OFFSET_ROW : f;
-      if (l < nb) sf[f][l] = fields[row * stride + lo + l];
+  Pixel q[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = pixel_index(tid, k);
+    q[k] = Pixel{static_cast<float>(p % TILE_X), static_cast<float>(p / TILE_X), g[p], g[PIX + p],
+                 g[2 * PIX + p], g[3 * PIX + p] * blk[3 * PIX + p], blk[4 * PIX + p], 0.f};
+  }
+  const int my_value = (lane & 1) ? -1 : scatter_lane_value(lane >> 1);
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // batches: the tile's slots cut at the global 128-slot boundaries, walked
+  // from the last (chunk c_hi) down to the first (chunk c_lo)
+  const int c_lo = s / CHUNK, c_hi = (walk_end - 1) / CHUNK;
+  if (tid == 0) {
+    stage_slots(sf[0], &bar[0], fields, stride, max(s, c_hi * CHUNK), walk_end, STAGED, OFFSET_ROW);
+  }
+
+  for (int i = 0, c = c_hi; c >= c_lo; ++i, --c) {
+    const int st = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int lo = max(s, c * CHUNK), hi = min(walk_end, (c + 1) * CHUNK);
+    __syncthreads();  // every thread is done with batch i-1: its stage and partials
+    if (tid == 0 && c > c_lo) {
+      fence_proxy_async();
+      stage_slots(sf[st ^ 1], &bar[st ^ 1], fields, stride, max(s, (c - 1) * CHUNK), c * CHUNK, STAGED,
+                  OFFSET_ROW);
+    }
+    mbar_wait(&bar[st], parity);
+
+    const int a0 = lo & ~3;
+    for (int gi = (hi - 1 - a0) >> 2; gi >= 0; --gi) {
+      const SlotGroup sg(&sf[st][0][0], gi);
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const int l = 4 * gi + j;  // index in the batch's stage
+        const int slot = a0 + l;
+        if (slot < lo || slot >= hi) continue;  // uniform: another tile's slot
+        float v[NSUM];
+#pragma unroll
+        for (int m = 0; m < NSUM; ++m) v[m] = 0.f;
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float dx = sg.x[j] - q[k].px, dy = sg.y[j] - q[k].py;
+          const float power = slot_power(sg, j, dx, dy);
+          if (alpha_is_zero(sg, j, power)) continue;
+          const float raw = sg.op[j] * expf(power);
+          const float alpha = alpha_of(raw);
+          if (alpha > 0.f) {
+            any = true;
+            walk_back(q[k], sg, j, alpha, raw, dx, dy, v);
+          }
+        }
+        const float r = __any_sync(FULL, any) ? reduce_scatter9(v, lane) : 0.f;
+        if (my_value >= 0) part[warp * NSUM + my_value][l] = r;
+      }
     }
     __syncthreads();
-    for (int l = nb - 1; l >= 0; --l) {
-      const float dx = sf[0][l] - px;
-      const float dy = sf[1][l] - py;
-      const float power =
-          fminf((sf[2][l] * dx + sf[3][l] * dy) * dx + (sf[4][l] * dy) * dy, 0.f);
-      const float raw = sf[5][l] * expf(power);
-      const float alpha = raw >= MIN_ALPHA ? fminf(MAX_ALPHA, raw) : 0.f;
-      float v[NSUM];
+    // one thread per slot of the batch: the warps' partials in warp order,
+    // then the slot's rows
+    for (int l = tid; l < CHUNK; l += THREADS) {
+      const int slot = a0 + l;
+      if (slot < lo || slot >= hi) continue;
+      float sum[NSUM];
 #pragma unroll
-      for (int k = 0; k < NSUM; ++k) v[k] = 0.f;
-      if (alpha > 0.f) {
-        const float tlog = log1pf(-alpha);
-        const float pre = lt - tlog;
-        lt = pre;
-        const float w = pre + tlog >= LOG_STOP_T ? alpha * expf(pre) : 0.f;
-        const float gwc = w * (gc0 * sf[6][l] + gc1 * sf[7][l] + gc2 * sf[8][l]);
-        float gp = gwc - (S + gtt) * (alpha / (1.f - alpha));
-        if (raw > MAX_ALPHA) gp = 0.f;
-        S += gwc;
-        const float gdx = gp * dx, gdy = gp * dy;
-        v[0] = gc0 * w;
-        v[1] = gc1 * w;
-        v[2] = gc2 * w;
-        v[3] = gp;
-        v[4] = gdx;
-        v[5] = gdy;
-        v[6] = gdx * dx;
-        v[7] = gdx * dy;
-        v[8] = gdy * dy;
-      }
-      if (__any_sync(FULL, alpha > 0.f)) {
+      for (int m = 0; m < NSUM; ++m) {
+        float acc = part[m][l];
 #pragma unroll
-        for (int k = 0; k < NSUM; ++k) v[k] = warp_sum(v[k]);
+        for (int w = 1; w < WARPS; ++w) acc += part[w * NSUM + m][l];
+        sum[m] = acc;
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < NSUM; ++k) part[warp][k][l] = v[k];
-      }
-    }
-    __syncthreads();
-    for (int i = p; i < NSUM * BATCH; i += PIX) {
-      const int k = i / BATCH, l = i % BATCH;
-      if (l < nb) {
-        float acc = 0.f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) acc += part[w][k][l];
-        sums[k][l] = acc;
-      }
-    }
-    __syncthreads();
-    if (p < nb) {
-      const int l = p;
-      const float mx = sums[4][l], my = sums[5][l];
-      float* o = grads + lo + l;
-      o[0 * stride] = 2.f * sf[2][l] * mx + sf[3][l] * my;
-      o[1 * stride] = 2.f * sf[4][l] * my + sf[3][l] * mx;
-      o[2 * stride] = sums[6][l];
-      o[3 * stride] = sums[7][l];
-      o[4 * stride] = sums[8][l];
-      o[5 * stride] = sums[3][l] / fmaxf(sf[5][l], 1e-12f);
-      o[6 * stride] = sums[0][l];
-      o[7 * stride] = sums[1][l];
-      o[8 * stride] = sums[2][l];
-      o[9 * stride] = sf[9][l];
+      const float fa = sf[st][2][l], fb = sf[st][3][l], fc = sf[st][4][l];
+      const float mx = sum[4], my = sum[5];
+      float* o = grads + slot;
+      o[0 * stride] = 2.f * fa * mx + fb * my;
+      o[1 * stride] = 2.f * fc * my + fb * mx;
+      o[2 * stride] = sum[6];
+      o[3 * stride] = sum[7];
+      o[4 * stride] = sum[8];
+      o[5 * stride] = sum[3] / fmaxf(sf[st][5][l], 1e-12f);
+      o[6 * stride] = sum[0];
+      o[7 * stride] = sum[1];
+      o[8 * stride] = sum[2];
+      o[9 * stride] = sf[st][9][l];
     }
   }
 }
@@ -198,19 +281,20 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
 
 extern "C" {
 
-// fields: (16, stride) f32 staged sorted fields (rows 0-8 and 10 read);
-// starts/ends: (num_tiles,) i32 tile slot ranges (ends = sentinel slots);
-// meta: (4,) i32 on the device, [chunks_exec, tile_start, tile_end, cap];
-// totals: K1's (num_tiles, 8, 512) f32 blocks; gout: their cotangent, same
-// shape; grads: (16, stride) f32, zero-initialized by the caller. Launches
-// on `stream`; returns cudaGetLastError() (0 when the launch was accepted).
+// fields: (16, stride) f32 staged sorted fields (rows 0-8 and 10 read),
+// 16-byte aligned with stride a multiple of 128; starts/ends: (num_tiles,)
+// i32 tile slot ranges (ends = sentinel slots); meta: (4,) i32 on the
+// device, [chunks_exec, tile_start, tile_end, cap]; totals: K1's
+// (num_tiles, 8, 512) f32 blocks; gout: their cotangent, same shape; grads:
+// (16, stride) f32, zero-initialized by the caller. Launches on `stream`;
+// returns cudaGetLastError() (0 when the launch was accepted).
 int c3dgs_tiles_packed_bwd(const float* fields, long long stride,
                            const int* starts, const int* ends,
                            const int* meta, const float* totals,
                            const float* gout, float* grads, int num_tiles,
                            void* stream) {
   if (num_tiles > 0) {
-    tiles_packed_bwd_kernel<<<num_tiles, PIX, 0,
+    tiles_packed_bwd_kernel<<<num_tiles, THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         fields, stride, starts, ends, meta, totals, gout, grads);
   }

@@ -13,134 +13,183 @@
 // Tiles whose sentinel lies at or past meta[0]*128 (the execution clamp)
 // are left unwritten; assemble_image's `complete` mask replaces them.
 //
-// Design. The TPU kernel walks the global sorted instance array one
-// aligned 128-slot chunk per grid step on one core, with in-chunk prefixes
-// as masked triangular MXU matmuls and a carry for the tile left open at
-// the chunk's end. Here one CTA owns one 32x16 tile (4,080 CTAs at 1080p),
-// one thread per pixel. A CTA reads its tile's slot range [starts[t],
-// ends[t]) and walks it front to back in batches staged into shared
-// memory: x, y, a', b', c', opacity, r, g, b for up to 128 slots (4.6 KB).
-// Batches are cut at the GLOBAL 128-slot boundaries, where the TPU kernel
+// Numerics. The TPU kernel walks the global sorted instance array one
+// aligned 128-slot chunk per grid step; here one CTA owns one 32x16 tile
+// (4,080 CTAs at 1080p) and walks its slot range [starts[t], ends[t]) front
+// to back in batches cut at the GLOBAL 128-slot boundaries, where the TPU
 // decides the freeze: at an aligned boundary b inside the range whose chunk
 // holds no sentinel of this tile (the TPU's ng == 0), a block-wide test
-// freezes the tile when every pixel's lt is below log(1e-6); b is then the
-// freeze slot. Per pixel and slot (tiles_packed.py:129-146, 236-242):
+// freezes the tile when every pixel's lt is below log(1e-6) (a NaN stays
+// live); b is then the freeze slot. Per pixel and slot
+// (tiles_packed.py:129-146, 236-242):
 //   power = min(a'dx^2 + b'dxdy + c'dy^2, 0)   (tile-local means)
 //   alpha = min(0.99, op*exp(power)), 0 below 1/255
 //   T_in  = exp(lt); contribution alpha*T_in*rgb while T_in*(1-alpha) >= 1e-4
 //   lt   += log1p(-alpha)
 // lt keeps advancing past the stop test (rows 3-4 export it); there is no
-// per-pixel early exit. A slot with alpha == 0 changes nothing and is
-// skipped after its first exp.
+// per-pixel early exit. Each pixel's arithmetic is the one of the first version
+// (accurate expf/log1pf, --fmad=false), so its rows are bitwise those.
 //
-// Bound on the card. chip_smoke.py's 1080p bench frame (300k splats, 4,080
-// tiles; H100 80GB HBM3 at 700 W, max SM clock 1980 MHz) walks 653,388
-// slots: 23.5 MB of staged fields read and 66.8 MB of blocks written, 90 MB
-// in all, 0.027 ms at 3.35 TB/s. It evaluates 3.35e8 (pixel, slot) pairs,
-// each an exp, and 6.2e7 of them with alpha > 0 add a log1p and an exp:
-// 4.6e8 special-function ops on 132 SMs x 16 a clock, 0.110 ms. So the
-// kernel is bound by special-function operations, not bytes; chip_smoke.py
-// computes each run's bound from that run's own counts. This first version
-// keeps the accurate expf/log1pf (the plain version's rounding) and makes
-// no attempt at load balance across heavy tiles.
+// Bound on the card. chip_smoke.py's 1080p bench frame (300k splats;
+// H100 80GB HBM3 at 700 W, max SM clock 1980 MHz) walks 653,388 slots:
+// 3.35e8 (pixel, slot) pairs, each an exp, and 6.2e7 with alpha > 0 add a
+// log1p and an exp: 4.6e8 special-function ops on 132 SMs x 16 a clock,
+// 0.110 ms; 90 MB of fields and blocks, 0.027 ms. chip_smoke.py computes
+// each run's bound from that run's counts.
+//
+// Design for the card (the first version ran one thread per pixel and read 9
+// scalar fields from shared memory per (pixel, slot), 0.74 ms):
+//   - 256 threads per tile, 2 pixels per thread (tiles_packed_common.cuh:
+//     warp w owns a 16x4 region, its pixel k the 8x4 block k of it). Each
+//     (warp, k) slice of 32 pixels is compact, so the branches on alpha
+//     diverge less than along a 32-pixel row.
+//   - Fields are read as float4s over 4 consecutive slots of one field
+//     row: 9 16-byte shared loads serve 4 slots x 2 pixels, where the
+//     first version issued 9 scalar loads per pair.
+//   - A two-deep ring of slot batches in shared memory, filled by bulk
+//     async copies on mbarriers (bulk_copy.cuh; the copy of P1): one thread
+//     issues batch b+1's 9 row copies when batch b starts, so the load
+//     overlaps batch b's compute. The freeze test doubles as the barrier
+//     that frees the older stage.
+//   - A slot whose power is below -5.55 (exp(-5.55) < 1/255) and whose
+//     opacity is at most 1 has alpha 0 in every version: its exp is
+//     skipped. Nothing else changes for such a slot.
+//   - Residency, chosen by measurement as K2's: 4 CTAs of 8 warps per SM
+//     (at most 64 registers), 9.2 KB of shared memory each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tiles_packed_common.cuh"
+
 namespace {
 
-constexpr int TILE_X = 32;
-constexpr int PIX = 512;  // 32 x 16 pixels, one thread each
-constexpr int CHUNK = 128;
-constexpr int OUT_ROWS = 8;
+using namespace c3dgs;
+
 constexpr int USED = 9;  // x, y, a', b', c', opacity, r, g, b
 constexpr float STOP_T = 1e-4f;
-constexpr float MIN_ALPHA = 1.0f / 255.0f;
-constexpr float MAX_ALPHA = 0.99f;
 constexpr float LOG_EXIT_T = -13.815510557964274f;  // log(1e-6)
 
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(THREADS, 4)
 tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
                         const int* __restrict__ starts,
                         const int* __restrict__ ends,
                         const int* __restrict__ meta,
                         float* __restrict__ out) {
-  __shared__ float sf[USED][CHUNK];
+  __shared__ __align__(128) float sf[2][USED][CHUNK];
+  __shared__ __align__(8) uint64_t bar[2];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int tid = threadIdx.x;
   const int e = ends[t];  // the tile's sentinel slot
   if (e >= meta[0] * CHUNK) return;  // never flushed on a clamped frame
   const int s = starts[t];
-  const float px = static_cast<float>(p % TILE_X);
-  const float py = static_cast<float>(p / TILE_X);
-
-  float lt = 0.f, cr = 0.f, cg = 0.f, cb = 0.f;
+  float px[PPT], py[PPT];
+  float lt[PPT], cr[PPT], cg[PPT], cb[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = pixel_index(tid, k);
+    px[k] = static_cast<float>(p % TILE_X);
+    py[k] = static_cast<float>(p / TILE_X);
+    lt[k] = cr[k] = cg[k] = cb[k] = 0.f;
+  }
   float frz = static_cast<float>(meta[3]);
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && s < e) {
+    stage_slots(sf[0], &bar[0], fields, stride, s, min(e, (s / CHUNK + 1) * CHUNK), USED, USED - 1);
+  }
+
   int pos = s;
-  while (pos < e) {
+  for (int i = 0; pos < e; ++i) {
+    const int st = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int batch_end = min(e, (pos / CHUNK + 1) * CHUNK);
     if ((pos % CHUNK) == 0 && pos + CHUNK <= e) {
-      // freeze test (uniform across the block). !(lt < x) keeps a NaN
-      // pixel live, as the TPU's max-reduction does.
-      if (!__syncthreads_or(!(lt < LOG_EXIT_T))) {
+      // freeze test (uniform across the block); !(lt < x) keeps a NaN
+      // pixel live, as the TPU's max-reduction does
+      bool live = false;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) live |= !(lt[k] < LOG_EXIT_T);
+      if (!__syncthreads_or(live)) {
         frz = static_cast<float>(pos);
+        mbar_wait(&bar[st], parity);  // this batch's copy is in flight
         break;
       }
+    } else {
+      __syncthreads();
     }
-    const int batch_end = min(e, (pos / CHUNK + 1) * CHUNK);
-    const int nb = batch_end - pos;
-    __syncthreads();  // every thread is done with the previous batch
-    for (int i = p; i < USED * CHUNK; i += PIX) {
-      const int f = i / CHUNK, l = i % CHUNK;
-      if (l < nb) sf[f][l] = fields[f * stride + pos + l];
+    // every thread is done with batch i-1: its stage takes batch i+1
+    if (tid == 0 && batch_end < e) {
+      fence_proxy_async();
+      stage_slots(sf[st ^ 1], &bar[st ^ 1], fields, stride, batch_end, min(e, batch_end + CHUNK), USED,
+                  USED - 1);
     }
-    __syncthreads();
-    for (int l = 0; l < nb; ++l) {
-      const float dx = sf[0][l] - px;
-      const float dy = sf[1][l] - py;
-      const float power =
-          fminf((sf[2][l] * dx + sf[3][l] * dy) * dx + (sf[4][l] * dy) * dy, 0.f);
-      const float raw = sf[5][l] * expf(power);
-      const float alpha = raw >= MIN_ALPHA ? fminf(MAX_ALPHA, raw) : 0.f;
-      if (alpha > 0.f) {
-        const float t_in = expf(lt);
-        if (t_in * (1.f - alpha) >= STOP_T) {
-          const float w = alpha * t_in;
-          cr += w * sf[6][l];
-          cg += w * sf[7][l];
-          cb += w * sf[8][l];
+    mbar_wait(&bar[st], parity);
+
+    const int a0 = pos & ~3;
+    for (int g = 0; 4 * g < batch_end - a0; ++g) {
+      const SlotGroup sg(&sf[st][0][0], g);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int slot = a0 + 4 * g + j;
+        if (slot < pos || slot >= batch_end) continue;  // uniform: another tile's slot
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float power = slot_power(sg, j, sg.x[j] - px[k], sg.y[j] - py[k]);
+          if (alpha_is_zero(sg, j, power)) continue;
+          const float alpha = alpha_of(sg.op[j] * expf(power));
+          if (alpha > 0.f) {
+            const float t_in = expf(lt[k]);
+            if (t_in * (1.f - alpha) >= STOP_T) {
+              const float w = alpha * t_in;
+              cr[k] += w * sg.r[j];
+              cg[k] += w * sg.g[j];
+              cb[k] += w * sg.bl[j];
+            }
+            lt[k] += log1pf(-alpha);
+          }
         }
-        lt += log1pf(-alpha);
       }
     }
     pos = batch_end;
   }
 
-  float* o = out + static_cast<long long>(t) * OUT_ROWS * PIX + p;
-  o[0 * PIX] = cr;
-  o[1 * PIX] = cg;
-  o[2 * PIX] = cb;
-  o[3 * PIX] = expf(lt);
-  o[4 * PIX] = lt;
-  o[5 * PIX] = frz;
-  o[6 * PIX] = 0.f;
-  o[7 * PIX] = 0.f;
+  float* o = out + static_cast<long long>(t) * OUT_ROWS * PIX;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    float* q = o + pixel_index(tid, k);
+    q[0 * PIX] = cr[k];
+    q[1 * PIX] = cg[k];
+    q[2 * PIX] = cb[k];
+    q[3 * PIX] = expf(lt[k]);
+    q[4 * PIX] = lt[k];
+    q[5 * PIX] = frz;
+    q[6 * PIX] = 0.f;
+    q[7 * PIX] = 0.f;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// fields: (16, stride) f32 staged sorted fields (rows 0-8 read);
-// starts/ends: (num_tiles,) i32 tile slot ranges (ends = sentinel slots);
-// meta: (4,) i32 on the device, [chunks_exec, tile_start, tile_end, cap];
-// out: (num_tiles, 8, 512) f32. Launches on `stream`; returns
-// cudaGetLastError() (0 when the launch was accepted).
+// fields: (16, stride) f32 staged sorted fields (rows 0-8 read), 16-byte
+// aligned with stride a multiple of 128; starts/ends: (num_tiles,) i32 tile
+// slot ranges (ends = sentinel slots); meta: (4,) i32 on the device,
+// [chunks_exec, tile_start, tile_end, cap]; out: (num_tiles, 8, 512) f32.
+// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
+// accepted).
 int c3dgs_tiles_packed_fwd(const float* fields, long long stride,
                            const int* starts, const int* ends,
                            const int* meta, float* out, int num_tiles,
                            void* stream) {
   if (num_tiles > 0) {
-    tiles_packed_fwd_kernel<<<num_tiles, PIX, 0,
+    tiles_packed_fwd_kernel<<<num_tiles, THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         fields, stride, starts, ends, meta, out);
   }

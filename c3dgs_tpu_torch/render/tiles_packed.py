@@ -30,6 +30,9 @@ from .tiles import LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, 
 from .types import TILE_X, TILE_Y
 
 TID_ROW = 9  # staged field row carrying the lane's tile id (f32 exact)
+# K1 and K2 skip the exp of a pair whose opacity is at most 1 and whose
+# power is below this: alpha is 0 there (csrc/tiles_packed_common.cuh)
+SKIP_POWER = -5.55
 
 FORWARD_KERNEL = kernels.register(
     kernels.Kernel(
@@ -92,6 +95,8 @@ def _check(fields, tile_lo, meta, starts, ends) -> int:
         raise ValueError(f"fields must be ({NUM_FIELDS}, k*{CHUNK}), got {tuple(fields.shape)}")
     if tile_lo.shape != (fields.shape[1] // CHUNK + 1,) or meta.shape != (4,):
         raise ValueError("tile_lo must hold exec_cap/128 + 1 entries and meta 4")
+    if dev.type == "cuda" and fields.data_ptr() % 16:
+        raise ValueError("fields must be 16-byte aligned: the kernels stage them with bulk copies")
     num_tiles = starts.shape[0]
     if starts.ndim != 1 or ends.shape != starts.shape:
         raise ValueError("starts and ends must be (T,)")
@@ -160,9 +165,8 @@ def forward_plain(
     a chunk with no flush whose open tile has max lt < log(1e-6) freezes
     that tile (its remaining lanes are dead, its freeze slot is exported).
 
-    `stats`, if given, accumulates the work counts this data needs:
-    `pairs` (pixel, live lane) evaluations and `alpha_pairs`, those with
-    alpha > 0. Unflushed tiles of a clamped frame are zero here."""
+    `stats`, if given, accumulates the work counts of `_count_pairs` that
+    this data needs. Unflushed tiles of a clamped frame are zero here."""
     num_tiles = _check(fields, tile_lo, meta, starts, ends)
     meta_host = meta.tolist()
     _check_tile_range(meta_host, num_tiles)
@@ -198,8 +202,7 @@ def forward_plain(
         raw = op * torch.exp(power)
         alpha = torch.where(raw >= MIN_ALPHA, torch.clamp(raw, max=MAX_ALPHA), torch.zeros_like(raw))
         if stats is not None:
-            stats["pairs"] = stats.get("pairs", 0) + PIX * int((op > 0).sum())
-            stats["alpha_pairs"] = stats.get("alpha_pairs", 0) + int((alpha > 0).sum())
+            _count_pairs(stats, op, power, alpha)
         tlog = torch.log1p(-alpha)  # (PIX, CHUNK)
         # in-group exclusive prefix: the chunk's float64 exclusive cumsum
         # minus its value at the lane's group head (tid is non-decreasing
@@ -296,6 +299,32 @@ def _in_group_suffix(x64: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return rev[:, :-1] - rev[:, last + 1]
 
 
+def _count_pairs(stats: dict, op: torch.Tensor, power: torch.Tensor, alpha: torch.Tensor) -> None:
+    """Add to `stats` one chunk's (pixel, live lane) evaluations: `pairs`,
+    `exp_pairs`, those whose exp the kernels cannot skip (opacity above 1
+    or power at least SKIP_POWER), and `alpha_pairs`, those with alpha > 0.
+    op is (CHUNK,) with dead lanes zeroed; power and alpha are (PIX, CHUNK)."""
+    live = op > 0
+    stats["pairs"] = stats.get("pairs", 0) + PIX * int(live.sum())
+    needs_exp = live & ((op > 1.0) | (power >= SKIP_POWER))
+    stats["exp_pairs"] = stats.get("exp_pairs", 0) + int(needs_exp.sum())
+    stats["alpha_pairs"] = stats.get("alpha_pairs", 0) + int((alpha > 0).sum())
+
+
+def _count_live_groups(stats: dict, live: torch.Tensor) -> None:
+    """Add to `stats` the (slot, pixel group) pairs in which any pixel has
+    alpha > 0, for the pixel groups the kernels' warps cover: `row_pairs`
+    (one 32-pixel tile row, the warps of K2's first version) and
+    `warp_pairs` (a 16x4 region, the redesigned K2's warps, which reduce
+    only such pairs). `live` is (PIX, lanes) bool, pixels row-major in the
+    tile."""
+    lanes = live.shape[1]
+    grid = live.reshape(TILE_Y, TILE_X, lanes)
+    for key, (gy, gx) in (("row_pairs", (1, TILE_X)), ("warp_pairs", (4, 16))):
+        g = grid.reshape(TILE_Y // gy, gy, TILE_X // gx, gx, lanes).any(3).any(1)
+        stats[key] = stats.get(key, 0) + int(g.sum())
+
+
 def backward_plain(
     fields, tile_lo, meta, starts, ends, totals, grad_out, stats: Optional[dict] = None
 ) -> torch.Tensor:
@@ -314,8 +343,8 @@ def backward_plain(
     blocks are never read. A chunk with no flush whose open tile froze
     before it is a no-op and is skipped.
 
-    `stats`, if given, accumulates `pairs` (pixel, live lane) evaluations
-    and `alpha_pairs`, those with alpha > 0."""
+    `stats`, if given, accumulates the counts of `_count_pairs` and of
+    `_count_live_groups`."""
     num_tiles = _check(fields, tile_lo, meta, starts, ends)
     grad_out = grad_out.contiguous()
     _check_blocks(totals, grad_out, num_tiles, fields.device)
@@ -369,8 +398,8 @@ def backward_plain(
         capped = raw > MAX_ALPHA
         alpha = torch.where(raw >= MIN_ALPHA, torch.clamp(raw, max=MAX_ALPHA), torch.zeros_like(raw))
         if stats is not None:
-            stats["pairs"] = stats.get("pairs", 0) + PIX * int((op > 0).sum())
-            stats["alpha_pairs"] = stats.get("alpha_pairs", 0) + int((alpha > 0).sum())
+            _count_pairs(stats, op, power, alpha)
+            _count_live_groups(stats, alpha > 0)
         tlog = torch.log1p(-alpha)
         last = _group_last(grp)
         # entering log-transmittance: walk back from the group's anchor

@@ -13,8 +13,9 @@ Phases (any failed check raises, and the script exits non-zero):
   3. K1 against its plain version on identical staged fields: at the full
      bench frame (bench.py's scene: 300k gaussians, SH degree 3,
      trained-opacity statistics, 1920x1080, capacity probed as bench.py
-     does) and on the two freeze scenes at 64x48; K1's time, its plain
-     version's time and the frame's bound;
+     does), on the two freeze scenes and on the long-tile scene at 64x48;
+     the bench frame's slots walked per tile (mean, p99, max); K1's time,
+     its plain version's time and the frame's bound;
   4. serve: render_and_eval over 8 orbit poses of the 300k scene through
      the capacity policy (inference=True), with every kernel count reset
      just before and read just after; per-view ms from CUDA events;
@@ -28,9 +29,11 @@ Phases (any failed check raises, and the script exits non-zero):
      gradient at 1080p against float64;
   7. K2 against its plain version at the bench frame (phase 3's staged
      fields and K1 blocks, the cotangent of bench.py's L1 loss against a
-     zero image) and on the freeze and boundary scenes; K2's time, its plain
-     version's time, its bound, a bitwise repeat, and the reduction's error
-     per column against a float64 index_add in both fast_grad modes;
+     zero image) and on the freeze, boundary and long-tile scenes; K2's
+     time, its plain version's time, its bound, bitwise repeats, the slots
+     walked per tile, the (slot, warp) pairs with any alpha > 0 that set
+     its shuffle count, and the reduction's error per column against a
+     float64 index_add in both fast_grad modes;
   8. fwd+bwd at the bench frame (bench.py's metric: one forward and the
      L1 loss's gradients with respect to the 7 scene parameters), its
      stage breakdown and the profiler's device busy share;
@@ -56,8 +59,12 @@ Phases (any failed check raises, and the script exits non-zero):
      breakdown;
  15. train the 300k quantized scene 4 steps with packed=False, counts
      reset just before and read just after;
- 16. the `kernels` JSON line (K1-K4), the card line, and the final status
-     line.
+ 16. the DMA probes P1-P3: the probe tool's entry point with every kernel
+     count reset just before and read just after, each probe kernel
+     against its plain version on the tool's and seeded inputs, their
+     times against their byte bounds and the launch overhead;
+ 17. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
+     status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -86,6 +93,7 @@ from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
+from c3dgs_tpu_torch.tools import dma_probe, scenes
 from c3dgs_tpu_torch.train import trainer
 
 # H100 SXM peaks (NVIDIA data sheet)
@@ -205,6 +213,14 @@ def freeze_scenes():
     return out
 
 
+def long_tile_scene():
+    """scenes.long_tile_scene (three tiles of 1,792-2,053 slots at 64x48,
+    the top-left one frozen at slot 1408) as (means, cov, opacity, colors)."""
+    means, scales, quats, opacity, colors = scenes.long_tile_scene()
+    cov = quat.cov6_from_scaling_rotation(torch.as_tensor(scales), torch.as_tensor(quats)).numpy()
+    return means, cov, opacity, colors
+
+
 def bench_scene(device, n):
     """bench.py:34-77's scene (same RNG stream): 300k points, splats shrunk
     to a trained footprint, trained-opacity Beta(0.5, 0.35) statistics.
@@ -317,6 +333,15 @@ def lt_margin(fields, start, boundary):
     return float(torch.log1p(-alpha).sum(1).max()) - LOG_EXIT_T
 
 
+def walk_lengths(name, starts, ends, frz, complete):
+    """Log the distribution of slots walked per flushed tile
+    (min(ends, freeze) - starts)."""
+    n = (torch.minimum(frz.long(), ends.long()) - starts.long())[complete].double()
+    p99 = float(torch.quantile(n, 0.99))
+    log(f"  {name}: slots walked per tile over {n.numel()} tiles: mean {float(n.mean()):.1f}, p99 {p99:.0f}, "
+        f"max {int(n.max())}; {int((n > 1000).sum())} tiles above 1,000")
+
+
 def compare_k1(name, args, stats=None):
     """K1 vs forward_plain on identical inputs: rows 0-4 within 2e-5 abs +
     1e-4 rel on tiles whose freeze slots agree; every freeze-slot mismatch
@@ -354,6 +379,9 @@ def phase_k1(scene, card_clock_mhz):
         t = lambda x: torch.as_tensor(x, device=DEVICE)
         args = staged_inputs(t(means), cov.to(DEVICE), t(opacity), ev, small, colors=t(colors))
         compare_k1(f"{name} scene 64x48", args)
+    means, cov, opacity, colors = long_tile_scene()
+    t = lambda x: torch.as_tensor(x, device=DEVICE)
+    compare_k1("long-tile scene 64x48", staged_inputs(t(means), t(cov), t(opacity), ev, small, colors=t(colors)))
 
     # the bench frame, with bench.py's probe-exact buckets
     settings = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
@@ -382,16 +410,19 @@ def phase_k1(scene, card_clock_mhz):
 
     # the least time for this frame's work: each staged field slot a tile
     # walks read once (9 f32 rows), starts/ends read, blocks written; every
-    # walked (pixel, slot) pair one exp, and those with alpha > 0 a log1p
-    # and an exp more, on the card's special-function units
+    # walked (pixel, slot) pair's power in fp32, an exp for those the
+    # kernel's skip keeps, and a log1p and an exp more for those with
+    # alpha > 0, on the card's special-function units
     nc = int(meta[0])
     complete = ends < nc * 128
     frz = out_k[:, 5, 0].long()
     walked = int((torch.minimum(frz, ends.long()) - starts.long())[complete].sum())
+    walk_lengths("bench frame", starts, ends, frz, complete)
     t = starts.shape[0]
     bytes_moved = 9 * 4 * walked + 2 * 4 * t + t * 8 * 512 * 4
-    log(f"  work: {walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['alpha_pairs']} with alpha > 0")
-    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 2 * stats["alpha_pairs"],
+    log(f"  work: {walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
+        f"their exp, {stats['alpha_pairs']} with alpha > 0")
+    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 2 * stats["alpha_pairs"],
                                12 * stats["pairs"] + 11 * stats["alpha_pairs"], card_clock_mhz)
     log(f"  K1 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3")
@@ -673,7 +704,8 @@ def phase_k2(ctx, clock_mhz):
     small = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45))
     scenes = grad_scenes()
     ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
-    for name in ("occluder", "wall", "boundary"):
+    scenes["long-tile"] = (*long_tile_scene(), False, None)
+    for name in ("occluder", "wall", "boundary", "long-tile"):
         means, cov, opacity, colors, _, kw = scenes[name]
         st = RasterSettings(**kw) if name == "boundary" else small
         t = lambda x: torch.as_tensor(x, device=DEVICE)
@@ -681,7 +713,11 @@ def phase_k2(ctx, clock_mhz):
         totals = tiles_packed.forward(*args)
         g = np.zeros(tuple(totals.shape), np.float32)
         g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
-        compare_k2(f"{name} scene {st.width}x{st.height}", args, totals, torch.as_tensor(g, device=DEVICE))
+        _, got = compare_k2(f"{name} scene {st.width}x{st.height}", args, totals, torch.as_tensor(g, device=DEVICE))
+        if name == "long-tile":
+            if not torch.equal(got, tiles_packed.backward(*args, totals, torch.as_tensor(g, device=DEVICE))):
+                raise AssertionError("K2 is not bitwise repeatable on the long-tile scene")
+            log("  K2 run twice on the long-tile scene: bitwise equal")
 
     fields, tile_lo, meta, starts, ends = args = ctx.args
     totals = ctx.out
@@ -722,13 +758,19 @@ def phase_k2(ctx, clock_mhz):
 
     # the least time for K2's work at this frame: each walked slot's 10
     # staged rows read once, 7 block rows per pixel read, the 16 gradient
-    # rows of the execution capacity written; one exp per walked (pixel,
-    # slot) pair, and a log1p, an exp and a reciprocal per pair with
-    # alpha > 0, on the special-function units
+    # rows of the execution capacity written; every walked (pixel, slot)
+    # pair's power in fp32, an exp for those the kernel's skip keeps, and a
+    # log1p, an exp and a reciprocal per pair with alpha > 0, on the
+    # special-function units
     t = starts.shape[0]
     bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * rows + 2 * 4 * t
-    log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['alpha_pairs']} with alpha > 0")
-    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 3 * stats["alpha_pairs"],
+    log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
+        f"their exp, {stats['alpha_pairs']} with alpha > 0")
+    walk_lengths("bench frame", starts, ends, totals[:, 5, 0], ctx.complete)
+    log(f"  (slot, pixel group) pairs with any alpha > 0: {stats['row_pairs']} of 32-pixel rows (K2's first warps: "
+        f"{45 * stats['row_pairs']} shuffles at 45 each), {stats['warp_pairs']} of 16x4 regions (the "
+        f"redesign's warps: {12 * stats['warp_pairs']} shuffles at 12 each)")
+    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 3 * stats["alpha_pairs"],
                                12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
     log(f"  K2 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
@@ -1199,6 +1241,110 @@ def phase_train_per_tile(scene, base, steps=4):
     return launches
 
 
+# --------------------------------------------------------- DMA probes
+def phase_probes():
+    """P1-P3 through the probe tool's entry point, with the kernel counts
+    reset just before and read just after; then each kernel against its
+    plain version on the tool's inputs and on seeded ones, its time from
+    CUDA events (median of 20) against its byte bound, its plain version's
+    and, where one PyTorch call computes the same function, that call's."""
+    log("== phase 16: the DMA probes (python -m c3dgs_tpu_torch.tools.dma_probe)")
+    probe_kernels = (dma_probe.PROBE1_KERNEL, dma_probe.PROBE2_KERNEL, dma_probe.PROBE3_KERNEL)
+    kernels.reset_counts()
+    rc = dma_probe.main()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY.values() if k.launches}
+    log(f"  entry point returned {rc}; kernel launches {launches}")
+    assert rc == 0 and set(launches) == {k.name for k in probe_kernels}, launches
+
+    rng = np.random.default_rng(0)
+    arange = lambda shape: torch.arange(math.prod(shape), dtype=torch.float32, device=DEVICE).reshape(shape)
+    seeded = lambda shape: torch.as_tensor(rng.uniform(0.5, 1.5, size=shape), dtype=torch.float32, device=DEVICE)
+    inputs = {
+        "dma_probe1": [arange((dma_probe.P1_CAP, 16)), seeded((dma_probe.P1_CAP, 16))],
+        "dma_probe2": [arange((dma_probe.P2_TILES, 8, 512)), seeded((dma_probe.P2_TILES, 8, 512))],
+        "dma_probe3": [torch.ones((16, dma_probe.P3_CHUNKS * 128), device=DEVICE),
+                       seeded((16, dma_probe.P3_CHUNKS * 128))],
+    }
+    errs = {}
+    for x in inputs["dma_probe1"]:
+        got, ref = dma_probe.scale_chunks(x).cpu(), dma_probe.probe1_plain(x.cpu())
+        assert torch.equal(got, ref), "P1 differs from its plain version"
+        errs["dma_probe1"] = 0.0
+    for x in inputs["dma_probe2"]:
+        got, ref = dma_probe.add_blocks(x).cpu(), dma_probe.probe2_plain(x.cpu())
+        assert torch.equal(got, ref), "P2 differs from its plain version"
+        errs["dma_probe2"] = 0.0
+    err3 = 0.0
+    for i, x in enumerate(inputs["dma_probe3"]):
+        for do_t in (False, True):
+            out, sums = dma_probe.chunk_sums(x, do_t)
+            ref_out, ref_sums = dma_probe.probe3_plain(x.cpu(), do_t)
+            for what, got, ref in (("output", out.cpu(), ref_out), ("chunk sums", sums.cpu(), ref_sums)):
+                err3 = max(err3, check_close(f"P3 transpose={do_t} input {i} {what}", got, ref, 0.0,
+                                             dma_probe.P3_RTOL))
+            if i == 0:
+                assert bool((out == 256.0).all()), "P3 on the tool's all-ones input must give 256.0"
+    errs["dma_probe3"] = err3
+    log("  P1 and P2 bitwise equal to their plain versions on the tool's and seeded inputs; "
+        "P3 256.0 on the tool's input")
+
+    x1, x2, x3 = inputs["dma_probe1"][0], inputs["dma_probe2"][0], inputs["dma_probe3"][0]
+    o1, o2 = torch.empty_like(x1), torch.empty_like(x2)
+    sums, o3 = torch.empty(dma_probe.P3_CHUNKS, device=DEVICE), torch.empty((1, 128), device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch1 = lambda: dma_probe.PROBE1_KERNEL.launch(x1.data_ptr(), o1.data_ptr(), x1.shape[0] // 128, stream)
+    launch2 = lambda: dma_probe.PROBE2_KERNEL.launch(x2.data_ptr(), o2.data_ptr(), x2.shape[0], stream)
+    timed = {
+        "dma_probe1": (launch1, lambda: dma_probe.probe1_plain(x1), lambda: torch.mul(x1, 2.0),
+                       2 * x1.numel() * 4),
+        "dma_probe2": (launch2, lambda: dma_probe.probe2_plain(x2), lambda: torch.add(x2, 1.0),
+                       2 * x2.numel() * 4),
+        "dma_probe3": (lambda: dma_probe.launch3(x3, False, sums, o3), lambda: dma_probe.probe3_plain(x3, False),
+                       None, x3.numel() * 4 + sums.numel() * 4 + o3.numel() * 4),
+    }
+    # launch overhead: back-to-back launches of P1, the lightest kernel
+    reps = 200
+    launch1()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        launch1()
+    b.record()
+    b.synchronize()
+    overhead = a.elapsed_time(b) / reps
+    log(f"  launch overhead: {overhead * 1e3:.2f} us per P1 launch over {reps} back-to-back launches")
+    out = []
+    dev = torch.device(DEVICE)
+    for k in probe_kernels:
+        launch, plain, library, nbytes = timed[k.name]
+        ms = dma_probe.median_ms(launch, dev)
+        plain_ms = dma_probe.median_ms(plain, dev)
+        library_ms = dma_probe.median_ms(library, dev) if library else None
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {k.name}: {ms:.4f} ms median of 20; bound {bound:.6f} ms ({nbytes} B); plain {plain_ms:.4f} ms"
+            + (f"; library {library_ms:.4f} ms" if library else ""))
+        out.append({
+            "name": k.name,
+            "route": "cuda",
+            "source": "c3dgs_tpu_torch/csrc/dma_probe.cu",
+            "replaces": k.replaces,
+            "launches": launches[k.name],
+            "max_abs_err": errs[k.name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": library_ms,  # P1: torch.mul, P2: torch.add; P3 has no single call
+            "launch_overhead_ms": overhead,
+        })
+    ms_t = dma_probe.median_ms(lambda: dma_probe.launch3(x3, True, sums, o3), dev)
+    out[2]["ms_transpose"] = ms_t
+    log(f"  P3 with the shared-memory transpose: {ms_t:.4f} ms; cost "
+        f"{(ms_t - out[2]['ms']) / dma_probe.P3_CHUNKS * 1e6:.1f} ns per chunk")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1229,8 +1375,9 @@ def main() -> int:
     phase_grads_per_tile()
     phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, phase=14)
     k4["launches"] = phase_train_per_tile(scene, dataclasses.replace(base, packed=False))[k4["name"]]
+    probes = phase_probes()
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

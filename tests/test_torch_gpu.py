@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card: K1
-and K2 (packed) and K3 and K4 (per-tile) on the small scenes, K2's and
-K4's determinism (K4's on a clamped frame too), the CUDA render's
-gradients against the port's oracle and CPU path in both kernel families,
-and the SSIM gradient in fp32.
+and K2 (packed) and K3 and K4 (per-tile) on the small scenes, K1 and K2
+on a scene of long tiles, K2's and K4's determinism (K4's on a clamped
+frame too), the DMA probes P1-P3, the CUDA render's gradients against the
+port's oracle and CPU path in both kernel families, and the SSIM gradient
+in fp32.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -21,6 +22,8 @@ from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings
+from c3dgs_tpu_torch.tools import dma_probe as tprobe
+from c3dgs_tpu_torch.tools import scenes
 
 EV = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # the reference's bar, tests/test_render.py:113
@@ -111,12 +114,21 @@ def boundary_scene():
     return dict(means=means, cov=cov6(scales, quats), op=opacity, colors=colors, shs=None), kw
 
 
+def long_tile_scene():
+    """c3dgs_tpu_torch.tools.scenes.long_tile_scene at its 64x48 view:
+    tiles of 1,792-2,053 slots, the top-left one frozen at slot 1408."""
+    means, scales, quats, opacity, colors = scenes.long_tile_scene()
+    kw = dict(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=0)
+    return dict(means=means, cov=cov6(scales, quats), op=opacity, colors=colors, shs=None), kw
+
+
 SCENES = {
     "make_scene": lambda: make_scene(300),
     "make_scene_sh": lambda: make_scene(300, sh=True),
     "occluder": occluder_scene,
     "wall": wall_scene,
     "boundary": boundary_scene,
+    "long_tile": long_tile_scene,
 }
 
 
@@ -170,6 +182,34 @@ def test_k1_cuda_kernel_matches_plain(scene):
     assert torch.equal(out_k[:, 5:], out_p[:, 5:])
 
 
+def test_long_tile_scene_stages_on_cpu():
+    """The long-tile scene through the CPU route: three tiles of more than
+    1,000 slots, one frozen after 10 live aligned boundaries, two never."""
+    sc, kw = long_tile_scene()
+    args = k1_inputs(sc, kw, "cpu")
+    starts, ends, cap = args[3], args[4], int(args[2][3])
+    lengths = (ends - starts).tolist()
+    assert sorted(lengths)[-3] > 1000
+    frz = tiles_packed.forward(*args)[:, 5, 0]
+    frozen = torch.nonzero(frz < cap).flatten().tolist()
+    assert frozen == [0] and int(frz[0]) - int(starts[0]) > 10 * 128
+    assert int(frz[0]) < int(ends[0]) and all(lengths[t] > 1000 for t in (0, 2, 4))
+
+
+@pytest.mark.gpu
+def test_k1_long_tiles_match_plain():
+    """K1 on tiles of 1,792-2,053 slots: every ring stage and aligned
+    boundary, the freeze slot exact."""
+    _need_card()
+    args = k1_inputs(*long_tile_scene(), "cuda")
+    out_k = tiles_packed.forward(*args)
+    torch.cuda.synchronize()
+    out_p = tiles_packed.forward_plain(*args)
+    torch.testing.assert_close(out_k[:, :5], out_p[:, :5], **K1_TOL)
+    assert torch.equal(out_k[:, 5:], out_p[:, 5:])
+    assert int((out_k[:, 5, 0] < float(args[2][3])).sum()) == 1
+
+
 @pytest.mark.gpu
 def test_render_on_card_matches_oracle_and_cpu():
     _need_card()
@@ -215,6 +255,53 @@ def test_k2_inputs_run_on_cpu():
     assert grads.shape == (16, args[0].shape[1]) and bool(grads[:9].abs().max() > 0)
 
 
+@pytest.mark.parametrize(
+    "pixels, want",
+    [
+        ([[(0, 0)], [(20, 5), (21, 5)], []], dict(row_pairs=2, warp_pairs=2)),
+        ([[(0, 0), (8, 0)], [(0, 0), (0, 4), (31, 15)]], dict(row_pairs=4, warp_pairs=4)),
+        ([[(0, 0), (16, 0)], [(0, 3), (0, 4)]], dict(row_pairs=3, warp_pairs=4)),
+    ],
+    ids=["one-group-each", "across-groups", "row-spans-two-warps"],
+)
+def test_k2_plain_counts_live_pixel_groups(pixels, want):
+    """chip_smoke.py's shuffle estimate reads these counts: per slot (lane),
+    the 32-pixel rows and 16x4 warp regions holding a live pixel."""
+    live = torch.zeros(512, len(pixels), dtype=torch.bool)
+    for lane, pts in enumerate(pixels):
+        for x, y in pts:
+            live[y * 32 + x, lane] = True
+    stats = {}
+    tiles_packed._count_live_groups(stats, live)
+    assert stats == want
+
+
+def test_packed_plain_counts_the_exps_the_kernels_skip():
+    """The K1/K2 bounds in chip_smoke.py count an exp only for the live
+    pairs the kernels' skip keeps: opacity above 1 or power at least
+    SKIP_POWER. Lane 0 is dead (opacity zeroed)."""
+    op = torch.tensor([0.0, 0.5, 2.0, 0.5])
+    power = torch.tensor([[-1.0, -6.0, -6.0, -1.0], [-1.0, tiles_packed.SKIP_POWER, -7.0, -7.0]])
+    alpha = torch.zeros_like(power)
+    alpha[0, 3] = 0.3
+    stats = {}
+    tiles_packed._count_pairs(stats, op, power, alpha)
+    assert stats == dict(pairs=3 * 512, exp_pairs=4, alpha_pairs=1)
+
+
+@pytest.mark.parametrize("scene", ["wall", "long_tile"])
+def test_packed_plain_exp_counts_cover_every_live_alpha(scene):
+    """The skip never drops a pair whose alpha is above 0: in both plain
+    versions alpha_pairs <= exp_pairs, and on these scenes it drops some
+    (exp_pairs < pairs)."""
+    args, totals, g = k2_inputs(scene, "cpu")
+    fwd, bwd = {}, {}
+    tiles_packed.forward_plain(*args, stats=fwd)
+    tiles_packed.backward_plain(*args, totals, g, stats=bwd)
+    for stats in (fwd, bwd):
+        assert 0 < stats["alpha_pairs"] <= stats["exp_pairs"] < stats["pairs"]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("scene", ["make_scene", "occluder", "wall", "boundary"])
 def test_k2_cuda_kernel_matches_plain(scene):
@@ -226,6 +313,23 @@ def test_k2_cuda_kernel_matches_plain(scene):
     got = tiles_packed.backward(*args, totals, g)
     torch.cuda.synchronize()
     assert tiles_packed.BACKWARD_KERNEL.launches == before + 1
+    ref = tiles_packed.backward_plain(*args, totals, g)
+    for r in range(9):
+        assert_normalized(got[r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(got[9:], ref[9:])
+
+
+@pytest.mark.gpu
+def test_k2_long_tiles_match_plain_and_repeat():
+    """K2 on tiles of 1,792-2,053 slots (14-16 ring stages each, one tile
+    walked back from its freeze slot): rows 0-8 at normalized 5e-4 per row,
+    the tag rows exact, and a second run bitwise equal."""
+    _need_card()
+    args, totals, g = k2_inputs("long_tile", "cuda")
+    got = tiles_packed.backward(*args, totals, g)
+    again = tiles_packed.backward(*args, totals, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ref = tiles_packed.backward_plain(*args, totals, g)
     for r in range(9):
         assert_normalized(got[r], ref[r], GRAD_TOL, f"row {r}")
@@ -404,6 +508,46 @@ def test_per_tile_render_gradients_on_card_match_oracle_and_cpu(scene):
         g_oracle, _ = render_grads(oracle.render_oracle, sc, kw, "cuda")
         for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_oracle):
             assert_normalized(a, b, GRAD_TOL, f"{name} vs oracle")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [None, 0])
+def test_dma_probe_kernels_match_plain(seed):
+    """P1-P3 on the card at the tool's shapes, on its own inputs (seed
+    None: arange, arange, ones) and on seeded ones: P1 and P2 bitwise, P3's
+    output and chunk sums within rtol 1e-6 (values in [0.5, 1.5), so no
+    cancellation), both transpose variants."""
+    _need_card()
+    rng = np.random.default_rng(seed)
+
+    def make(shape, default):
+        x = default(shape) if seed is None else rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
+        return torch.as_tensor(x, dtype=torch.float32).cuda()
+
+    arange = lambda shape: np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    x1 = make((tprobe.P1_CAP, 16), arange)
+    x2 = make((tprobe.P2_TILES, 8, 512), arange)
+    x3 = make((16, tprobe.P3_CHUNKS * tprobe.CHUNK), np.ones)
+    before = {k.name: k.launches for k in (tprobe.PROBE1_KERNEL, tprobe.PROBE2_KERNEL, tprobe.PROBE3_KERNEL)}
+    assert torch.equal(tprobe.scale_chunks(x1).cpu(), tprobe.probe1_plain(x1.cpu()))
+    assert torch.equal(tprobe.add_blocks(x2).cpu(), tprobe.probe2_plain(x2.cpu()))
+    for do_t in (False, True):
+        out, sums = tprobe.chunk_sums(x3, do_t)
+        ref_out, ref_sums = tprobe.probe3_plain(x3.cpu(), do_t)
+        torch.testing.assert_close(out.cpu(), ref_out, rtol=tprobe.P3_RTOL, atol=0)
+        torch.testing.assert_close(sums.cpu(), ref_sums, rtol=tprobe.P3_RTOL, atol=0)
+        if seed is None:
+            assert bool((out == 256.0).all())
+    after = {k.name: k.launches for k in (tprobe.PROBE1_KERNEL, tprobe.PROBE2_KERNEL, tprobe.PROBE3_KERNEL)}
+    assert {k: after[k] - before[k] for k in after} == {"dma_probe1": 1, "dma_probe2": 1, "dma_probe3": 2}
+
+
+@pytest.mark.gpu
+def test_dma_probe_entry_point_on_card(capsys):
+    _need_card()
+    assert tprobe.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and lines[0].endswith("-> ok") and "transpose cost" in lines[2]
 
 
 @pytest.mark.gpu

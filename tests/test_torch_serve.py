@@ -28,6 +28,7 @@ from c3dgs_tpu_torch.models import gaussians as tgauss
 from c3dgs_tpu_torch.render.capacity import MIN_CAPACITY, CapacityPolicy
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from c3dgs_tpu_torch.render.types import settings_from_intrinsic
+from c3dgs_tpu_torch.tools import dma_probe as tprobe
 from c3dgs_tpu_torch.train import trainer as ttrainer
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -222,7 +223,8 @@ def test_settings_from_intrinsic_matches_jax():
 # ---------------------------------------------------- isolation, device
 def test_package_imports_no_jax():
     code = (
-        "import sys, c3dgs_tpu_torch, c3dgs_tpu_torch.eval.metrics, c3dgs_tpu_torch.render.rasterizer; "
+        "import sys, c3dgs_tpu_torch, c3dgs_tpu_torch.eval.metrics, c3dgs_tpu_torch.render.rasterizer, "
+        "c3dgs_tpu_torch.tools.dma_probe; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax', 'c3dgs_tpu.')) "
         "or m == 'c3dgs_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -232,7 +234,7 @@ def test_package_imports_no_jax():
 
 
 def test_package_source_has_no_jax_imports():
-    banned = ("jax", "flax", "optax", "c3dgs_tpu")
+    banned = ("jax", "flax", "optax", "c3dgs_tpu", "tools")
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -259,6 +261,8 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
         lambda: tmetrics.render_full(scene, EV, settings, np.zeros(3)),
         lambda: tmetrics.render_and_eval(scene, []),
         lambda: carry_over(jax_scene(False), device=None),
+        tprobe.main,
+        tprobe.probe1,
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
