@@ -3,7 +3,7 @@
 // pltpu.make_async_copy + DMA semaphore. One thread arms the barrier with
 // the bytes it expects and issues the copies; every thread that reads the
 // data waits on the barrier's phase. Shared by csrc/dma_probe.cu (P1-P3)
-// and the packed kernels' batch rings (K1, K2, tiles_packed_common.cuh).
+// and the compositing kernels' rings (K1-K4, tiles_common.cuh).
 #pragma once
 
 #include <stdint.h>

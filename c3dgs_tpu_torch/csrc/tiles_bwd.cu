@@ -47,22 +47,42 @@
 // window skips its write and the result is the TPU's, on every run. A
 // block decides this from grad_base and nchunks alone.
 //
-// Design. One CTA per 32x16 tile, one thread per pixel, as K2
-// (tiles_packed_bwd.cu). Each window is staged in two halves of 64 lanes
-// (x, y, a', b', c', op, r, g, b, pre-sort slot), the upper half first,
-// and every thread walks a half back to front with S and lt in registers.
-// The per-lane sums are deterministic and free of atomics: a warp-shuffle
-// tree per lane and value (a warp whose lanes all have alpha = 0 writes
-// zeros and skips its shuffles), per-warp partials in shared memory (16
-// warps x 9 values x 64 lanes, 36 KB), then one sum over the 16 warps in a
-// fixed order. Two runs give bitwise-equal gradients.
+// Bound on the card: one exp per walked (pixel, lane) pair the skip below
+// keeps, and a log1p, an exp and a reciprocal per pair with alpha > 0, on
+// the special-function units, or the fp32 arithmetic, whichever is longer;
+// chip_smoke.py computes each run's bound from that run's own counts.
 //
-// Bound on the card: one exp per walked (pixel, real lane) pair, and a
-// log1p, an exp and a reciprocal per pair with alpha > 0, on the
-// special-function units; chip_smoke.py computes each run's bound from
-// that run's own counts. This first version adds ~45 shuffles per lane and
-// warp for the sums and makes no attempt at load balance across heavy
-// tiles.
+// Design for the card. The first version ran one thread per pixel (16 warps
+// per tile), summed each lane's 9 values by 9 five-step shuffle trees in
+// every warp with a live pixel (45 shuffles per (lane, 32-pixel row)), kept
+// 16 partial rows per lane sum, staged 64-lane halves by plain loads behind
+// 3 barriers each with no load in flight during the walk, and took every
+// exp. Now, as K2 (tiles_packed_bwd.cu):
+//   - 256 threads per tile, 2 pixels per thread (tiles_common.cuh: warp w
+//     owns a 16x4 region, its pixel k the 8x4 block k of it). A thread
+//     first adds its 2 pixels' 9 values in registers (pixel order).
+//   - The warp's 9 sums by one butterfly reduce-scatter: 5 + 3 + 2 + 1
+//     shuffles halve the values a lane holds at each step and a last one
+//     joins lane pairs, 12 per (lane, warp) in place of 45, and only where
+//     the warp's 64 pixels hold an alpha > 0. Value k ends on a fixed lane
+//     (scatter_lane_value), and the 9 lanes holding values store them with
+//     one store instruction; a (lane, warp) with no alpha > 0 stores zeros.
+//   - After the window, one thread per lane adds the 8 warps' partials in
+//     warp order and writes the lane's 10 rows, coalesced along the lanes.
+//     The order is fixed everywhere: two runs give bitwise-equal rows, and
+//     there are no atomics.
+//   - Fields are read as float4s over 4 consecutive slots of a field row,
+//     from a two-deep ring of windows filled by bulk async copies on
+//     mbarriers: window w-1's 10 row copies are issued as window w starts.
+//     A stage holds the 16-byte aligned span around its window (up to 132
+//     floats); the walk skips the lanes outside the window.
+//   - A pair whose power is below -5.55 with opacity <= 1 has alpha 0 in
+//     every version; its exp is skipped, as its own branch (as in K1-K3).
+//   - Residency chosen by measurement (chip_smoke.py's K4 time, PERF.md):
+//     4 CTAs of 8 warps per SM (at most 64 registers; ptxas spills a few
+//     bytes) ran faster than 3 (80 registers) or 2; 47.7 KB of static
+//     shared memory each (the ring and the partials), below the 48 KB that
+//     would need a dynamic allocation, and 4 x 47.7 KB fit the SM's 228 KB.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,11 +93,12 @@ namespace {
 
 using namespace c3dgs;
 
-constexpr int BATCH = 64;  // lanes staged at once: half a window
 constexpr int STAGED = 10;  // x, y, a', b', c', opacity, r, g, b, pre-sort slot
-constexpr int NSUM = 9;  // rgb x3, s0, mx, my, mxx, mxy, myy
+constexpr int PRESORT_ROW = 9;  // fields row holding the pre-sort slot
+constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
+constexpr int MIN_CTAS = 4;
 
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
                  const int* __restrict__ tile_ids,
                  const int* __restrict__ starts,
@@ -87,13 +108,13 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
                  const float* __restrict__ totals,
                  const float* __restrict__ gout, int tiles_x,
                  float* __restrict__ grads, long long gstride, int num_tiles) {
-  __shared__ float sf[STAGED][BATCH];
-  __shared__ float part[WARPS][NSUM][BATCH];
-  __shared__ float sums[NSUM][BATCH];
+  __shared__ __align__(128) float sf[2][STAGED][STAGE_W];
+  __shared__ float part[WARPS * NSUM][PART_LD];  // row warp*9 + value
+  __shared__ __align__(8) uint64_t bar[2];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int nw = nchunks[t];
   if (nw == 0) return;
   const int s = starts[t];
@@ -119,98 +140,108 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
   // windows the forward never blended: the tag row only
   for (int w = stop; w < nw; ++w) {
     const long long off = offset(w);
-    if (off >= 0 && p < CHUNK) {
-      grads[PRESORT_ROW * gstride + off + p] =
-          w * CHUNK + p < count ? fields[PRESORT_ROW * stride + s + w * CHUNK + p] : cap;
+    if (off >= 0 && tid < CHUNK) {
+      grads[PRESORT_ROW * gstride + off + tid] =
+          w * CHUNK + tid < count ? fields[PRESORT_ROW * stride + s + w * CHUNK + tid] : cap;
     }
   }
+  if (stop == 0) return;
 
-  float px, py;
-  pixel_coords(tile_ids[t], tiles_x, p, &px, &py);
-  const float gc0 = g[p], gc1 = g[PIX + p], gc2 = g[2 * PIX + p];
-  const float gtt = g[3 * PIX + p] * blk[3 * PIX + p];
-  float lt = blk[4 * PIX + p];
-  float S = 0.f;
-
-  for (int w = stop - 1; w >= 0; --w) {
-    const long long off = offset(w);
-    for (int half = 1; half >= 0; --half) {
-      const int lo = w * CHUNK + half * BATCH;  // first lane's index in the tile
-      const int nb = max(0, min(BATCH, count - lo));
-      if (nb > 0) {
-        __syncthreads();  // every thread is done with the previous half
-        for (int i = p; i < STAGED * BATCH; i += PIX) {
-          const int f = i / BATCH, l = i % BATCH;
-          if (l < nb) sf[f][l] = fields[f * stride + s + lo + l];
-        }
-        __syncthreads();
-        for (int l = nb - 1; l >= 0; --l) {
-          const float dx = sf[0][l] - px;
-          const float dy = sf[1][l] - py;
-          float raw;
-          const float alpha = alpha_of(dx, dy, sf[2][l], sf[3][l], sf[4][l], sf[5][l], &raw);
-          float v[NSUM];
+  const int tile_id = tile_ids[t];
+  Pixel q[PPT];
 #pragma unroll
-          for (int k = 0; k < NSUM; ++k) v[k] = 0.f;
+  for (int k = 0; k < PPT; ++k) {
+    const int p = pixel_index(tid, k);
+    float px, py;
+    pixel_coords(tile_id, tiles_x, p, &px, &py);
+    q[k] = Pixel{px, py, g[p], g[PIX + p], g[2 * PIX + p], g[3 * PIX + p] * blk[3 * PIX + p], blk[4 * PIX + p],
+                 0.f};
+  }
+  const int my_value = (lane & 1) ? -1 : scatter_lane_value(lane >> 1);
+
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the window [s + w*128, min(s + (w+1)*128, ends[t])) of the tile
+  auto window_lo = [&](int w) { return s + w * CHUNK; };
+  auto window_hi = [&](int w) { return s + min((w + 1) * CHUNK, count); };
+  if (tid == 0) {
+    stage_slots(sf[0], &bar[0], fields, stride, window_lo(stop - 1), window_hi(stop - 1), STAGED, PRESORT_ROW);
+  }
+
+  for (int i = 0, w = stop - 1; w >= 0; ++i, --w) {
+    const int st = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    __syncthreads();  // every thread is done with window w+1: its stage and partials
+    if (tid == 0 && w > 0) {
+      fence_proxy_async();
+      stage_slots(sf[st ^ 1], &bar[st ^ 1], fields, stride, window_lo(w - 1), window_hi(w - 1), STAGED,
+                  PRESORT_ROW);
+    }
+    mbar_wait(&bar[st], parity);
+
+    const int base = window_lo(w), end = window_hi(w);
+    const int a0 = base & ~3;
+    for (int gi = (end - 1 - a0) >> 2; gi >= 0; --gi) {
+      const SlotGroup<STAGE_W> sg(&sf[st][0][0], gi);
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const int slot = a0 + 4 * gi + j;
+        if (slot < base || slot >= end) continue;  // uniform: outside the window
+        float v[NSUM];
+#pragma unroll
+        for (int m = 0; m < NSUM; ++m) v[m] = 0.f;
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float dx = sg.x[j] - q[k].px, dy = sg.y[j] - q[k].py;
+          const float power = slot_power(sg, j, dx, dy);
+          if (alpha_is_zero(sg, j, power)) continue;
+          const float raw = sg.op[j] * expf(power);
+          const float alpha = alpha_of(raw);
           if (alpha > 0.f) {
-            const float tlog = log1pf(-alpha);
-            const float pre = lt - tlog;
-            lt = pre;
-            const float wgt = pre + tlog >= LOG_STOP_T ? alpha * expf(pre) : 0.f;
-            const float gwc = wgt * (gc0 * sf[6][l] + gc1 * sf[7][l] + gc2 * sf[8][l]);
-            float gp = gwc - (S + gtt) * (alpha / (1.f - alpha));
-            if (raw > MAX_ALPHA) gp = 0.f;
-            S += gwc;
-            const float gdx = gp * dx, gdy = gp * dy;
-            v[0] = gc0 * wgt;
-            v[1] = gc1 * wgt;
-            v[2] = gc2 * wgt;
-            v[3] = gp;
-            v[4] = gdx;
-            v[5] = gdy;
-            v[6] = gdx * dx;
-            v[7] = gdx * dy;
-            v[8] = gdy * dy;
-          }
-          if (__any_sync(FULL, alpha > 0.f)) {
-#pragma unroll
-            for (int k = 0; k < NSUM; ++k) v[k] = warp_sum(v[k]);
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int k = 0; k < NSUM; ++k) part[warp][k][l] = v[k];
+            any = true;
+            walk_back(q[k], sg, j, alpha, raw, dx, dy, v);
           }
         }
-        __syncthreads();
-        for (int i = p; i < NSUM * BATCH; i += PIX) {
-          const int k = i / BATCH, l = i % BATCH;
-          if (l < nb) {
-            float acc = 0.f;
-#pragma unroll
-            for (int q = 0; q < WARPS; ++q) acc += part[q][k][l];
-            sums[k][l] = acc;
-          }
-        }
-        __syncthreads();
+        const float r = __any_sync(FULL, any) ? reduce_scatter9(v, lane) : 0.f;
+        if (my_value >= 0) part[warp * NSUM + my_value][slot - base] = r;
       }
-      if (off >= 0 && p < BATCH) {
-        const int l = p;
-        float* o = grads + off + half * BATCH + l;
-        if (l < nb) {
-          const float mx = sums[4][l], my = sums[5][l];
-          o[0 * gstride] = 2.f * sf[2][l] * mx + sf[3][l] * my;
-          o[1 * gstride] = 2.f * sf[4][l] * my + sf[3][l] * mx;
-          o[2 * gstride] = sums[6][l];
-          o[3 * gstride] = sums[7][l];
-          o[4 * gstride] = sums[8][l];
-          o[5 * gstride] = sums[3][l] / fmaxf(sf[5][l], 1e-12f);
-          o[6 * gstride] = sums[0][l];
-          o[7 * gstride] = sums[1][l];
-          o[8 * gstride] = sums[2][l];
-          o[9 * gstride] = sf[9][l];
-        } else {  // a tail lane: zero rows (the buffer is zero) and the cap tag
-          o[9 * gstride] = cap;
+    }
+    __syncthreads();
+    // one thread per lane of the window: the warps' partials in warp
+    // order, then the lane's rows
+    const long long off = offset(w);
+    if (off >= 0 && tid < CHUNK) {
+      const int l = tid;
+      float* o = grads + off + l;
+      if (base + l < end) {
+        float sum[NSUM];
+#pragma unroll
+        for (int m = 0; m < NSUM; ++m) {
+          float acc = part[m][l];
+#pragma unroll
+          for (int wi = 1; wi < WARPS; ++wi) acc += part[wi * NSUM + m][l];
+          sum[m] = acc;
         }
+        const float* f = &sf[st][0][base + l - a0];
+        const float fa = f[2 * STAGE_W], fb = f[3 * STAGE_W], fc = f[4 * STAGE_W];
+        const float mx = sum[4], my = sum[5];
+        o[0 * gstride] = 2.f * fa * mx + fb * my;
+        o[1 * gstride] = 2.f * fc * my + fb * mx;
+        o[2 * gstride] = sum[6];
+        o[3 * gstride] = sum[7];
+        o[4 * gstride] = sum[8];
+        o[5 * gstride] = sum[3] / fmaxf(f[5 * STAGE_W], 1e-12f);
+        o[6 * gstride] = sum[0];
+        o[7 * gstride] = sum[1];
+        o[8 * gstride] = sum[2];
+        o[9 * gstride] = f[PRESORT_ROW * STAGE_W];
+      } else {  // a tail lane: zero rows (the buffer is zero) and the cap tag
+        o[9 * gstride] = cap;
       }
     }
   }
@@ -220,18 +251,19 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
 
 extern "C" {
 
-// fields: (16, stride) f32 staged sorted fields (rows 0-9 read);
-// tile_ids/starts/ends/nchunks/grad_base: (num_tiles,) i32; totals: K3's
-// (num_tiles, 8, 512) f32 blocks; gout: their cotangent, same shape; grads:
-// (16, gstride) f32, zero-initialized by the caller. Launches on `stream`;
-// returns cudaGetLastError() (0 when the launch was accepted).
+// fields: (16, stride) f32 staged sorted fields (rows 0-9 read), 16-byte
+// aligned with stride a multiple of 128; tile_ids/starts/ends/nchunks/
+// grad_base: (num_tiles,) i32; totals: K3's (num_tiles, 8, 512) f32 blocks;
+// gout: their cotangent, same shape; grads: (16, gstride) f32,
+// zero-initialized by the caller. Launches on `stream`; returns
+// cudaGetLastError() (0 when the launch was accepted).
 int c3dgs_tiles_bwd(const float* fields, long long stride, const int* tile_ids,
                     const int* starts, const int* ends, const int* nchunks,
                     const int* grad_base, const float* totals, const float* gout,
                     int tiles_x, float* grads, long long gstride, int num_tiles,
                     void* stream) {
   if (num_tiles > 0) {
-    tiles_bwd_kernel<<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
+    tiles_bwd_kernel<<<num_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         fields, stride, tile_ids, starts, ends, nchunks, grad_base, totals, gout,
         tiles_x, grads, gstride, num_tiles);
   }

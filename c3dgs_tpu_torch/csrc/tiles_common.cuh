@@ -1,49 +1,199 @@
-// Shared by K3 (tiles_fwd.cu) and K4 (tiles_bwd.cu): the per-tile kernel
-// family's constants and its per-(pixel, instance) alpha, the numerics of
-// c3dgs_tpu/render/tiles.py:71-81 and :183-209. kernels.library_path
-// hashes this header into each including library's name, so an edit here
-// rebuilds both.
+// Shared by the four compositing kernels, K1 (tiles_packed_fwd.cu), K2
+// (tiles_packed_bwd.cu), K3 (tiles_fwd.cu) and K4 (tiles_bwd.cu): their
+// constants, their pixel layout, the bulk copy of a slot range into a ring
+// stage, the float4 read of a staged slot group, the pieces of the
+// per-(pixel, slot) alpha of c3dgs_tpu/render/tiles.py:71-81 and
+// tiles_packed.py:129-146, and the backward kernels' per-pixel step and
+// warp reduce-scatter. A packed stage is one aligned 128-slot chunk wide
+// (CHUNK); a per-tile window starts at any slot, so a per-tile stage is 4
+// slots wider (STAGE_W). kernels.library_path hashes this header into each
+// including library's name, so an edit here rebuilds all four.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace c3dgs {
 
 constexpr int TILE_X = 32;
 constexpr int TILE_Y = 16;
-constexpr int PIX = TILE_X * TILE_Y;  // one thread per pixel
-constexpr int WARPS = PIX / 32;
-constexpr int CHUNK = 128;  // instances per window
+constexpr int PIX = TILE_X * TILE_Y;
+constexpr int CHUNK = 128;  // the global slot chunk (packed), a window (per-tile)
 constexpr int OUT_ROWS = 8;
-constexpr int PRESORT_ROW = 9;  // staged field row holding the pre-sort slot
 constexpr float STOP_T = 1e-4f;
 constexpr float MIN_ALPHA = 1.0f / 255.0f;
 constexpr float MAX_ALPHA = 0.99f;
 constexpr float LOG_EXIT_T = -13.815510557964274f;  // log(1e-6)
 constexpr float LOG_STOP_T = -9.210340371976182f;  // log(1e-4)
+// op <= 1 and power below this: op * exp(power) < exp(-5.55) < 1/255, so
+// alpha is 0 in every version and the exp can be skipped
+constexpr float SKIP_POWER = -5.55f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The pixel's global coordinates in the tile with global id `tile_id`.
+// Pixels per thread, and threads per tile (one CTA per tile).
+constexpr int PPT = 2;
+constexpr int THREADS = PIX / PPT;
+constexpr int WARPS = THREADS / 32;
+
+// The per-tile kernels' stage width: a window's up to 128 instances start
+// at any slot, and the 16-byte aligned span around them is up to 132
+// floats wide.
+constexpr int STAGE_W = CHUNK + 4;
+
+// Tile-local pixel index of pixel k (0 or 1) of thread `tid`. The tile is a
+// 4x4 grid of 8x4 blocks; lane = 8 columns x 4 rows of a block, and pixel k
+// of warp w is block 2w + k in Z order, so a warp owns a 16x4 region and
+// each (warp, k) slice of 32 pixels is one 8x4 block: the branches on alpha
+// diverge less than along a 32-pixel row.
+__device__ __forceinline__ int pixel_index(int tid, int k) {
+  const int b = (tid >> 5) * PPT + k, lane = tid & 31;
+  const int bx = (b & 1) | ((b >> 1) & 2);
+  const int by = ((b >> 1) & 1) | ((b >> 2) & 2);
+  return (by * 4 + (lane >> 3)) * TILE_X + bx * 8 + (lane & 7);
+}
+
+// Global coordinates of tile-local pixel p of the tile with global id
+// `tile_id` (the per-tile kernels' staged means are global).
 __device__ __forceinline__ void pixel_coords(int tile_id, int tiles_x, int p, float* px, float* py) {
   *px = static_cast<float>((tile_id % tiles_x) * TILE_X + p % TILE_X);
   *py = static_cast<float>((tile_id / tiles_x) * TILE_Y + p / TILE_X);
 }
 
-// alpha = min(0.99, op * exp(min(power, 0))), 0 below 1/255, with the
-// pre-scaled conic (power = a'dx^2 + b'dxdy + c'dy^2); `raw` is
-// op * exp(power) before the cap (the backward blocks its gradient where
-// raw > 0.99).
-__device__ __forceinline__ float alpha_of(float dx, float dy, float a2, float b2, float c2, float op,
-                                          float* raw) {
-  const float power = fminf((a2 * dx + b2 * dy) * dx + (c2 * dy) * dy, 0.f);
-  *raw = op * expf(power);
-  return *raw >= MIN_ALPHA ? fminf(MAX_ALPHA, *raw) : 0.f;
+// One batch of a ring: slots [lo, hi) of `rows` field rows into
+// dst[f][...], dst[f] taking fields row f except the last, which takes row
+// `last_row`. The copy covers the 16-byte aligned span [lo & ~3,
+// roundup4(hi)), so slot s lands at dst[f][s - (lo & ~3)]; the caller
+// keeps the span within W floats and hi <= the row stride (a multiple of
+// 128). Called by one thread.
+template <int W>
+__device__ __forceinline__ void stage_slots(float (*dst)[W], uint64_t* bar, const float* fields, long long stride,
+                                            int lo, int hi, int rows, int last_row) {
+  const int a0 = lo & ~3;
+  const int a1 = (hi + 3) & ~3;
+  const uint32_t bytes = static_cast<uint32_t>(a1 - a0) * 4u;
+  mbar_expect_tx(bar, bytes * static_cast<uint32_t>(rows));
+  for (int f = 0; f < rows; ++f) {
+    const int row = f == rows - 1 ? last_row : f;
+    bulk_copy_g2s(dst[f], fields + row * stride + a0, bytes, bar);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Fields 0-8 (x, y, a', b', c', opacity, r, g, b) of the 4 staged slots
+// 4g..4g+3 of a ring stage laid out [field][W]: one 16-byte shared load
+// per field serves 4 slots.
+template <int W>
+struct SlotGroup {
+  float x[4], y[4], a[4], b[4], c[4], op[4], r[4], g[4], bl[4];
+
+  __device__ __forceinline__ SlotGroup(const float* stage, int group) {
+    load(x, stage, 0, group);
+    load(y, stage, 1, group);
+    load(a, stage, 2, group);
+    load(b, stage, 3, group);
+    load(c, stage, 4, group);
+    load(op, stage, 5, group);
+    load(r, stage, 6, group);
+    load(g, stage, 7, group);
+    load(bl, stage, 8, group);
+  }
+
+  static __device__ __forceinline__ void load(float (&dst)[4], const float* stage, int field, int group) {
+    const float4 v = *reinterpret_cast<const float4*>(stage + field * W + 4 * group);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+};
+
+// power = min(a'dx^2 + b'dxdy + c'dy^2, 0) of slot j of the group at
+// offset (dx, dy) from the pixel
+template <int W>
+__device__ __forceinline__ float slot_power(const SlotGroup<W>& s, int j, float dx, float dy) {
+  return fminf((s.a[j] * dx + s.b[j] * dy) * dx + (s.c[j] * dy) * dy, 0.f);
+}
+
+// op <= 1 and power below SKIP_POWER: alpha is 0 in every version. The
+// kernels test this before the exp as its own branch (`continue`), so the
+// exp and everything after it are skipped and not merely predicated off.
+template <int W>
+__device__ __forceinline__ bool alpha_is_zero(const SlotGroup<W>& s, int j, float power) {
+  return s.op[j] <= 1.f && power < SKIP_POWER;
+}
+
+// alpha = min(0.99, raw), 0 below 1/255, for raw = op * exp(power)
+__device__ __forceinline__ float alpha_of(float raw) { return raw >= MIN_ALPHA ? fminf(MAX_ALPHA, raw) : 0.f; }
+
+// ---------------------------------------------------------- backward (K2, K4)
+constexpr int NSUM = 9;  // rgb x3, s0, mx, my, mxx, mxy, myy
+
+// one step of the reduce-scatter: the lower half of each lane group keeps
+// lo, the upper half hi, each adding its partner's copy
+__device__ __forceinline__ float fold(float lo, float hi, bool upper, int mask) {
+  const float keep = upper ? hi : lo;
+  const float send = upper ? lo : hi;
+  return keep + __shfl_xor_sync(FULL, send, mask);
+}
+
+// The warp's sums of v[0..8], scattered: the returned value is the sum of
+// v[scatter_lane_value(lane >> 1)] over all 32 lanes (junk where that is
+// -1). Lane bit 4 splits the values {0-4 | 5-8}, bit 3 {first 3 | last 2}
+// of those, bit 2 {first 2 | last}, bit 1 {first | second}; bit 0 joins
+// the pair. 12 shuffles in a fixed order.
+__device__ __forceinline__ float reduce_scatter9(const float (&v)[NSUM], int lane) {
+  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4, u1 = lane & 2;
+  float a[5];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-  return v;
+  for (int i = 0; i < 5; ++i) a[i] = fold(v[i], i + 5 < NSUM ? v[i + 5] : 0.f, u4, 16);
+  float b[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b[i] = fold(a[i], i + 3 < 5 ? a[i + 3] : 0.f, u3, 8);
+  const float c0 = fold(b[0], b[2], u2, 4);
+  const float c1 = fold(b[1], 0.f, u2, 4);
+  const float d = fold(c0, c1, u1, 2);
+  return d + __shfl_xor_sync(FULL, d, 1);
+}
+
+// value index held by lanes 2m and 2m+1 after reduce_scatter9, -1 for
+// none: the table {0, 1, 2, -, 3, 4, -, -, 5, 6, 7, -, 8, -, -, -} as one
+// nibble per m (15 for none)
+__device__ __forceinline__ int scatter_lane_value(int m) {
+  const int v = static_cast<int>((0xFFF8F765FF43F210ull >> (4 * m)) & 15ull);
+  return v == 15 ? -1 : v;
+}
+
+// Per-pixel walk state of a backward kernel: the pixel's coordinates (in
+// the frame of the staged means), dL/dC, dL/dT_final * T_final, lt and the
+// strict suffix S.
+struct Pixel {
+  float px, py, gc0, gc1, gc2, gtt, lt, S;
+};
+
+// One pixel's step back over slot j, where its alpha > 0: lt and S move
+// back, and the pixel's 9 values are added to v.
+template <int W>
+__device__ __forceinline__ void walk_back(Pixel& q, const SlotGroup<W>& sg, int j, float alpha, float raw,
+                                          float dx, float dy, float (&v)[NSUM]) {
+  const float tlog = log1pf(-alpha);
+  const float pre = q.lt - tlog;
+  q.lt = pre;
+  const float w = pre + tlog >= LOG_STOP_T ? alpha * expf(pre) : 0.f;
+  const float gwc = w * (q.gc0 * sg.r[j] + q.gc1 * sg.g[j] + q.gc2 * sg.bl[j]);
+  float gp = gwc - (q.S + q.gtt) * (alpha / (1.f - alpha));
+  if (raw > MAX_ALPHA) gp = 0.f;
+  q.S += gwc;
+  const float gdx = gp * dx, gdy = gp * dy;
+  v[0] += q.gc0 * w;
+  v[1] += q.gc1 * w;
+  v[2] += q.gc2 * w;
+  v[3] += gp;
+  v[4] += gdx;
+  v[5] += gdy;
+  v[6] += gdx * dx;
+  v[7] += gdx * dy;
+  v[8] += gdy * dy;
 }
 
 }  // namespace c3dgs

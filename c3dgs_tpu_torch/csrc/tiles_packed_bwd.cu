@@ -51,7 +51,7 @@
 // every warp with a live lane: 45 shuffles per (slot, 32-pixel row), 2.1e8
 // at the bench frame, ~0.8 ms of the SMs' shuffle rate in its 1.77 ms; each
 // (slot, warp) also read 10 scalar fields from shared memory. Now:
-//   - 256 threads per tile, 2 pixels per thread (tiles_packed_common.cuh:
+//   - 256 threads per tile, 2 pixels per thread (tiles_common.cuh:
 //     warp w owns a 16x4 region, its pixel k the 8x4 block k of it). A
 //     thread first adds its 2 pixels' 9 values in registers (pixel order).
 //   - The warp's 9 sums by one butterfly reduce-scatter: 5 + 3 + 2 + 1
@@ -82,83 +82,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tiles_packed_common.cuh"
+#include "tiles_common.cuh"
 
 namespace {
 
 using namespace c3dgs;
 
-constexpr int WARPS = THREADS / 32;
 constexpr int STAGED = 10;  // x, y, a', b', c', opacity, r, g, b, pre-sort slot
 constexpr int OFFSET_ROW = 10;  // fields row holding the pre-sort slot
-constexpr int NSUM = 9;  // rgb x3, s0, mx, my, mxx, mxy, myy
 constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
-constexpr float LOG_STOP_T = -9.210340371976182f;  // log(1e-4)
-
-// one step of the reduce-scatter: the lower half of each lane group keeps
-// lo, the upper half hi, each adding its partner's copy
-__device__ __forceinline__ float fold(float lo, float hi, bool upper, int mask) {
-  const float keep = upper ? hi : lo;
-  const float send = upper ? lo : hi;
-  return keep + __shfl_xor_sync(FULL, send, mask);
-}
-
-// The warp's sums of v[0..8], scattered: the returned value is the sum of
-// v[scatter_lane_value(lane >> 1)] over all 32 lanes (junk where that is
-// -1). Lane bit 4 splits the values {0-4 | 5-8}, bit 3 {first 3 | last 2}
-// of those, bit 2 {first 2 | last}, bit 1 {first | second}; bit 0 joins
-// the pair. 12 shuffles in a fixed order.
-__device__ __forceinline__ float reduce_scatter9(const float (&v)[NSUM], int lane) {
-  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4, u1 = lane & 2;
-  float a[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) a[i] = fold(v[i], i + 5 < NSUM ? v[i + 5] : 0.f, u4, 16);
-  float b[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) b[i] = fold(a[i], i + 3 < 5 ? a[i + 3] : 0.f, u3, 8);
-  const float c0 = fold(b[0], b[2], u2, 4);
-  const float c1 = fold(b[1], 0.f, u2, 4);
-  const float d = fold(c0, c1, u1, 2);
-  return d + __shfl_xor_sync(FULL, d, 1);
-}
-
-// value index held by lanes 2m and 2m+1 after reduce_scatter9, -1 for
-// none: the table {0, 1, 2, -, 3, 4, -, -, 5, 6, 7, -, 8, -, -, -} as one
-// nibble per m (15 for none)
-__device__ __forceinline__ int scatter_lane_value(int m) {
-  const int v = static_cast<int>((0xFFF8F765FF43F210ull >> (4 * m)) & 15ull);
-  return v == 15 ? -1 : v;
-}
-
-// Per-pixel walk state: tile-local coordinates, dL/dC, dL/dT_final *
-// T_final, lt and the strict suffix S.
-struct Pixel {
-  float px, py, gc0, gc1, gc2, gtt, lt, S;
-};
-
-// One pixel's step back over slot j, where its alpha > 0: lt and S move
-// back, and the pixel's 9 values are added to v.
-__device__ __forceinline__ void walk_back(Pixel& q, const SlotGroup& sg, int j, float alpha, float raw,
-                                          float dx, float dy, float (&v)[NSUM]) {
-  const float tlog = log1pf(-alpha);
-  const float pre = q.lt - tlog;
-  q.lt = pre;
-  const float w = pre + tlog >= LOG_STOP_T ? alpha * expf(pre) : 0.f;
-  const float gwc = w * (q.gc0 * sg.r[j] + q.gc1 * sg.g[j] + q.gc2 * sg.bl[j]);
-  float gp = gwc - (q.S + q.gtt) * (alpha / (1.f - alpha));
-  if (raw > MAX_ALPHA) gp = 0.f;
-  q.S += gwc;
-  const float gdx = gp * dx, gdy = gp * dy;
-  v[0] += q.gc0 * w;
-  v[1] += q.gc1 * w;
-  v[2] += q.gc2 * w;
-  v[3] += gp;
-  v[4] += gdx;
-  v[5] += gdy;
-  v[6] += gdx * dx;
-  v[7] += gdx * dy;
-  v[8] += gdy * dy;
-}
 
 __global__ void __launch_bounds__(THREADS, 3)
 tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
@@ -220,7 +152,7 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
 
     const int a0 = lo & ~3;
     for (int gi = (hi - 1 - a0) >> 2; gi >= 0; --gi) {
-      const SlotGroup sg(&sf[st][0][0], gi);
+      const SlotGroup<CHUNK> sg(&sf[st][0][0], gi);
 #pragma unroll
       for (int j = 3; j >= 0; --j) {
         const int l = 4 * gi + j;  // index in the batch's stage

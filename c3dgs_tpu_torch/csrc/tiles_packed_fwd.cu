@@ -39,7 +39,7 @@
 //
 // Design for the card (the first version ran one thread per pixel and read 9
 // scalar fields from shared memory per (pixel, slot), 0.74 ms):
-//   - 256 threads per tile, 2 pixels per thread (tiles_packed_common.cuh:
+//   - 256 threads per tile, 2 pixels per thread (tiles_common.cuh:
 //     warp w owns a 16x4 region, its pixel k the 8x4 block k of it). Each
 //     (warp, k) slice of 32 pixels is compact, so the branches on alpha
 //     diverge less than along a 32-pixel row.
@@ -60,15 +60,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tiles_packed_common.cuh"
+#include "tiles_common.cuh"
 
 namespace {
 
 using namespace c3dgs;
 
 constexpr int USED = 9;  // x, y, a', b', c', opacity, r, g, b
-constexpr float STOP_T = 1e-4f;
-constexpr float LOG_EXIT_T = -13.815510557964274f;  // log(1e-6)
 
 __global__ void __launch_bounds__(THREADS, 4)
 tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
@@ -133,7 +131,7 @@ tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
 
     const int a0 = pos & ~3;
     for (int g = 0; 4 * g < batch_end - a0; ++g) {
-      const SlotGroup sg(&sf[st][0][0], g);
+      const SlotGroup<CHUNK> sg(&sf[st][0][0], g);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int slot = a0 + 4 * g + j;

@@ -122,8 +122,9 @@ class Binning(NamedTuple):
     # before chunk c: tiles [tile_lo[c], tile_lo[c+1]) flush in chunk c
     chunks_exec: torch.Tensor  # () chunks covering every sentinel
     perm: Optional[torch.Tensor]  # (cap,) sorted slot -> gaussian-major
-    # order, for the backward's grad reduction; None for inference, whose
-    # forward-only graph never reads it (the JAX graph drops it the same way)
+    # order, for the backward's grad reduction; None for inference, which
+    # skips that sort (the JAX graph drops it the same way when nothing
+    # takes gradients); a backward then reduces by pre-sort slot keys
 
 
 def _payload_bits(n: int, num_tiles: int) -> int:

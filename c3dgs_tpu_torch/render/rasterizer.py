@@ -10,8 +10,9 @@
 
 Gradients reach every input of `render` by autograd: the blend's backward
 returns d_table, and autograd carries it through per_gaussian_table,
-preprocess and the viewspace offset. The per-tile backward needs no
-binning.perm, so a render binned with inference=True takes gradients there.
+preprocess and the viewspace offset. A render binned with inference=True
+has no binning.perm; its backward reduces the kernel rows by their
+pre-sort slot keys instead, in both families, so it takes gradients too.
 """
 from __future__ import annotations
 
@@ -212,8 +213,10 @@ class BlendGaussiansPacked(torch.autograd.Function):
     """Stage the sorted fields and composite them with K1; returns the
     (T, OUT_ROWS, PIX) tile blocks. The backward runs K2 on the cotangent
     of those blocks and reduces its per-slot rows to d_table, compensated
-    unless `fast_grad`. It needs `perm` (training binning): a render binned
-    with inference=True raises there."""
+    unless `fast_grad`: through `perm` after a training binning, or, after
+    an inference binning (perm None), by the rows' pre-sort slot keys over
+    the executed chunks [0, meta[0]*CHUNK), as the reference does
+    (c3dgs_tpu/render/rasterizer.py:365-372)."""
 
     @staticmethod
     def forward(ctx, table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
@@ -225,20 +228,20 @@ class BlendGaussiansPacked(torch.autograd.Function):
         )
         out = tiles_packed.forward(fields, tile_lo, meta, starts, ends)
         ctx.save_for_backward(fields, tile_lo, meta, starts, ends, out, perm, emit_cum)
-        ctx.fast_grad = fast_grad
+        ctx.statics = (cap_total, fast_grad)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         fields, tile_lo, meta, starts, ends, out, perm, emit_cum = ctx.saved_tensors
-        if perm is None:
-            raise RuntimeError(
-                "this render was binned with inference=True, which skips the "
-                "gaussian-major permutation the backward reduces through; "
-                "render with inference=False to take gradients"
-            )
+        cap_total, fast_grad = ctx.statics
         grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, out, grad_out)
-        d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not ctx.fast_grad)
+        if perm is None:
+            # meta[0] * CHUNK stays a device tensor: no read back to the host
+            d_table = _reduce_instance_grads(grads, emit_cum, cap_total, 0, meta[0] * CHUNK, True,
+                                             compensated=not fast_grad)
+        else:
+            d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not fast_grad)
         return (d_table,) + (None,) * 14
 
 

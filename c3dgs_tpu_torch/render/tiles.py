@@ -6,10 +6,12 @@ the constants every compositing kernel shares.
 (csrc/tiles_fwd.cu, csrc/tiles_bwd.cu) for CUDA tensors and
 `forward_plain` / `backward_plain` for CPU tensors; there is no fallback
 from one to the other. Both take the staged sorted fields of
-rasterizer._build_fields (global means, row PRESORT_ROW the pre-sort slot)
-and the binning's per-tile bookkeeping. Tile t of the call composites the
-window of up to 128 instances starting at starts[t] + w*128, for w in
-[0, nchunks[t]); its pixels are those of global tile tile_ids[t].
+rasterizer._build_fields (global means, row PRESORT_ROW the pre-sort slot;
+16-byte aligned on the card, where the kernels stage them with bulk
+copies) and the binning's per-tile bookkeeping. Tile t of the call
+composites the window of up to 128 instances starting at starts[t] +
+w*128, for w in [0, nchunks[t]); its pixels are those of global tile
+tile_ids[t].
 
 The forward returns (T, OUT_ROWS, PIX) blocks: rows 0-2 color without
 background, 3 exp(lt_final), 4 lt_final, 5 `stop` (the first window the
@@ -51,6 +53,10 @@ OUT_ROWS = 8  # per-tile output block rows
 EXIT_T = 1e-6
 LOG_EXIT_T = math.log(EXIT_T)  # the forward's carry lives in log domain
 LOG_STOP_T = math.log(STOP_T)  # the backward's live check in log domain
+# the kernels skip the exp of a pair whose opacity is at most 1 and whose
+# power is below this: exp(-5.55) < 1/255, so alpha is 0 there
+# (csrc/tiles_common.cuh)
+SKIP_POWER = -5.55
 TILE_BATCH = 256  # tiles one step of the plain versions handles at once
 
 FORWARD_KERNEL = kernels.register(
@@ -113,6 +119,8 @@ def _check(fields, tile_ids, starts, ends, nchunks, grad_base=None) -> int:
             raise ValueError(f"{name} must be a contiguous {dt} tensor on {dev}")
     if fields.ndim != 2 or fields.shape[0] != NUM_FIELDS or fields.shape[1] % CHUNK:
         raise ValueError(f"fields must be ({NUM_FIELDS}, k*{CHUNK}), got {tuple(fields.shape)}")
+    if dev.type == "cuda" and fields.data_ptr() % 16:
+        raise ValueError("fields must be 16-byte aligned: the kernels stage them with bulk copies")
     num_tiles = tile_ids.shape[0]
     if tile_ids.ndim != 1 or any(t.shape != (num_tiles,) for _, t, _ in named[2:]):
         raise ValueError("tile_ids, starts, ends, nchunks and grad_base must all be (T,)")
@@ -174,8 +182,8 @@ def _window(fields, start, count, w: int):
 
 
 def _alpha(f, px, py, seg):
-    """JAX's _chunk_alpha over (B, PIX, CHUNK): dx, dy, masked alpha, and
-    the lanes whose alpha was capped at 0.99."""
+    """JAX's _chunk_alpha over (B, PIX, CHUNK): dx, dy, the clamped power,
+    masked alpha, and the lanes whose alpha was capped at 0.99."""
     dx = f[0][:, None, :] - px[:, :, None]
     dy = f[1][:, None, :] - py[:, :, None]
     a2, b2, c2 = f[2][:, None, :], f[3][:, None, :], f[4][:, None, :]
@@ -184,7 +192,13 @@ def _alpha(f, px, py, seg):
     capped = raw > MAX_ALPHA
     mask = (raw >= MIN_ALPHA) & seg[:, None, :]
     alpha = torch.where(mask, torch.clamp(raw, max=MAX_ALPHA), torch.zeros_like(raw))
-    return dx, dy, alpha, capped
+    return dx, dy, power, alpha, capped
+
+
+def needs_exp(f, power, seg):
+    """(B, PIX, CHUNK) pairs whose exp the kernels cannot skip: a real lane
+    whose opacity is above 1 or whose power is at least SKIP_POWER."""
+    return seg[:, None, :] & ((f[5][:, None, :] > 1.0) | (power >= SKIP_POWER))
 
 
 def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -193,9 +207,13 @@ def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(x64, -1) - x64).float()
 
 
-def _count(stats, alpha, seg) -> None:
+def _count(stats, f, power, alpha, seg) -> None:
+    """Add one window's work to `stats`: `pairs` (pixel, real lane)
+    evaluations, `exp_pairs`, those whose exp the kernels cannot skip
+    (needs_exp), and `alpha_pairs`, those with alpha > 0."""
     if stats is not None:
         stats["pairs"] = stats.get("pairs", 0) + PIX * int(seg.sum())
+        stats["exp_pairs"] = stats.get("exp_pairs", 0) + int(needs_exp(f, power, seg).sum())
         stats["alpha_pairs"] = stats.get("alpha_pairs", 0) + int((alpha > 0).sum())
 
 
@@ -208,9 +226,8 @@ def forward_plain(fields, tile_ids, starts, ends, nchunks, tiles_x: int,
     transmittance, lt then advances by the whole window's sum, and a tile
     whose every pixel has lt < log(1e-6) after window w stops at w + 1.
 
-    `stats`, if given, accumulates the work this data needs: `pairs`
-    (pixel, real lane) evaluations in the windows before `stop` and
-    `alpha_pairs`, those with alpha > 0."""
+    `stats`, if given, accumulates the work this data needs in the windows
+    before `stop` (_count: `pairs`, `exp_pairs`, `alpha_pairs`)."""
     num_tiles = _check(fields, tile_ids, starts, ends, nchunks)
     dev = fields.device
     out = torch.zeros((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=dev)
@@ -227,8 +244,8 @@ def forward_plain(fields, tile_ids, starts, ends, nchunks, tiles_x: int,
             if a.numel() == 0:
                 break
             f, seg = _window(fields, start[a], count[a], w)
-            _, _, alpha, _ = _alpha(f, px[a], py[a], seg)
-            _count(stats, alpha, seg)
+            _, _, power, alpha, _ = _alpha(f, px[a], py[a], seg)
+            _count(stats, f, power, alpha, seg)
             tlog = torch.log1p(-alpha)  # (A, PIX, CHUNK)
             t_in = torch.exp(_excl_prefix(tlog) + lt[a][:, :, None])
             wgt = torch.where(t_in * (1.0 - alpha) >= STOP_T, alpha * t_in, torch.zeros_like(alpha))
@@ -316,8 +333,7 @@ def backward_plain(fields, tile_ids, starts, ends, nchunks, grad_base, totals, g
     later windows' sums and dL/dT_final * T_final. Windows at or past the
     forward's `stop` write zeros and the tag row only.
 
-    `stats`, if given, accumulates `pairs` (pixel, real lane) evaluations
-    and `alpha_pairs`, those with alpha > 0."""
+    `stats`, if given, accumulates the work counts of _count."""
     num_tiles = _check(fields, tile_ids, starts, ends, nchunks, grad_base)
     grad_out = grad_out.contiguous()
     _check_blocks(totals, grad_out, num_tiles, fields.device)
@@ -349,8 +365,8 @@ def backward_plain(fields, tile_ids, starts, ends, nchunks, grad_base, totals, g
             if ci.numel():
                 c = a[ci]
                 fc, segc = f[:, ci], seg[ci]
-                dx, dy, alpha, capped = _alpha(fc, px[c], py[c], segc)
-                _count(stats, alpha, segc)
+                dx, dy, power, alpha, capped = _alpha(fc, px[c], py[c], segc)
+                _count(stats, fc, power, alpha, segc)
                 tlog = torch.log1p(-alpha)
                 s_excl = _excl_prefix(tlog)
                 lt_in = lt_exit[c] - tlog.double().sum(-1).float()

@@ -26,13 +26,11 @@ import torch
 
 from .. import kernels
 from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW
-from .tiles import LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, STOP_T, _check_blocks
+from .tiles import (LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, SKIP_POWER, STOP_T,
+                    _check_blocks)
 from .types import TILE_X, TILE_Y
 
 TID_ROW = 9  # staged field row carrying the lane's tile id (f32 exact)
-# K1 and K2 skip the exp of a pair whose opacity is at most 1 and whose
-# power is below this: alpha is 0 there (csrc/tiles_packed_common.cuh)
-SKIP_POWER = -5.55
 
 FORWARD_KERNEL = kernels.register(
     kernels.Kernel(

@@ -48,9 +48,9 @@ class RasterSettings:
     # the per-tile kernel family (render/tiles.py, K3/K4), whose grad
     # buffer is grad_capacity rows (cap + 2*128*num_tiles when 0)
     packed: bool = True
-    # forward-only rendering: binning reads tile ranges from a sentinel
-    # position sort and skips the gaussian-major permutation that only the
-    # backward needs. ends/starts values are identical either way.
+    # serving: binning reads tile ranges from a sentinel position sort and
+    # skips the gaussian-major permutation; ends/starts values are identical
+    # either way, and a backward still runs (it reduces by pre-sort slot keys)
     inference: bool = False
 
     @property

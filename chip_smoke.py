@@ -62,7 +62,8 @@ Phases (any failed check raises, and the script exits non-zero):
  16. the DMA probes P1-P3: the probe tool's entry point with every kernel
      count reset just before and read just after, each probe kernel
      against its plain version on the tool's and seeded inputs, their
-     times against their byte bounds and the launch overhead;
+     times against their byte bounds and the launch overhead, and P1
+     against torch.mul and P2 against torch.add in 5 alternating rounds;
  17. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
      status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
@@ -172,6 +173,14 @@ def roofline(bytes_moved: int, sfu_ops: int, flops: int, clock_mhz: float):
     log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
         f"({sfu_ops} ops at {clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
     return max(t_bytes, t_sfu, t_flops), "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations"
+
+
+def old_bound(bytes_moved: int, stats: dict, sfu_per_alpha: int, flops: int, clock_mhz: float) -> float:
+    """K3's or K4's bound with an exp counted for every walked pair, as it
+    was computed before those kernels skipped exps: logged beside the new
+    one."""
+    t_sfu = (stats["pairs"] + sfu_per_alpha * stats["alpha_pairs"]) / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
+    return max(bytes_moved / HBM_BYTES_PER_S, t_sfu, flops / FP32_FLOPS) * 1e3
 
 
 # ------------------------------------------------------------------ scenes
@@ -431,7 +440,7 @@ def phase_k1(scene, card_clock_mhz):
         "route": "cuda",
         "source": "c3dgs_tpu_torch/csrc/tiles_packed_fwd.cu",
         "replaces": tiles_packed.FORWARD_KERNEL.replaces,
-        "launches": None,  # filled from the serve run
+        "launches": None,  # filled from the serve and training runs
         "max_abs_err": err,
         "freeze_mismatches": mism,
         "ms": statistics.median(ms),
@@ -1031,9 +1040,12 @@ def phase_k3(scene, settings, clock_mhz):
     t = starts.shape[0]
     bytes_moved = 9 * 4 * walked + 4 * 4 * t + t * 8 * 512 * 4
     log(f"  work: {walked} walked instances in {int(torch.minimum(stop, nch.long()).sum())} windows, "
-        f"{stats['pairs']} (pixel, instance) pairs, {stats['alpha_pairs']} with alpha > 0")
-    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 2 * stats["alpha_pairs"],
-                               12 * stats["pairs"] + 11 * stats["alpha_pairs"], clock_mhz)
+        f"{stats['pairs']} (pixel, instance) pairs, {stats['exp_pairs']} needing their exp "
+        f"({stats['exp_pairs'] / stats['pairs']:.1%}), {stats['alpha_pairs']} with alpha > 0")
+    flops = 12 * stats["pairs"] + 11 * stats["alpha_pairs"]
+    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 2 * stats["alpha_pairs"], flops, clock_mhz)
+    log(f"  K3 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 2, flops, clock_mhz):.4f} ms "
+        "when every pair's exp was counted")
     log(f"  K3 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3")
     return {
@@ -1041,7 +1053,7 @@ def phase_k3(scene, settings, clock_mhz):
         "route": "cuda",
         "source": "c3dgs_tpu_torch/csrc/tiles_fwd.cu",
         "replaces": tiles.FORWARD_KERNEL.replaces,
-        "launches": None,  # filled from the per-tile serve run
+        "launches": None,  # filled from the per-tile serve and training runs
         "max_abs_err": err,
         "ms": statistics.median(ms),
         "plain_ms": statistics.median(plain_ms),
@@ -1140,9 +1152,12 @@ def phase_k4(scene, ctx, clock_mhz):
     t = args[2].shape[0]
     bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * grad_cap + 5 * 4 * t
     log(f"  work: {ctx.walked} walked instances, {stats['pairs']} (pixel, instance) pairs, "
-        f"{stats['alpha_pairs']} with alpha > 0; grad buffer {grad_cap} columns")
-    bound, bound_by = roofline(bytes_moved, stats["pairs"] + 3 * stats["alpha_pairs"],
-                               12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
+        f"{stats['exp_pairs']} needing their exp, {stats['alpha_pairs']} with alpha > 0; "
+        f"grad buffer {grad_cap} columns")
+    flops = 12 * stats["pairs"] + 40 * stats["alpha_pairs"]
+    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 3 * stats["alpha_pairs"], flops, clock_mhz)
+    log(f"  K4 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 3, flops, clock_mhz):.4f} ms "
+        "when every pair's exp was counted")
     log(f"  K4 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
         f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
@@ -1338,6 +1353,15 @@ def phase_probes():
             "library_ms": library_ms,  # P1: torch.mul, P2: torch.add; P3 has no single call
             "launch_overhead_ms": overhead,
         })
+    # P1 against torch.mul and P2 against torch.add in turns: 5 rounds, each
+    # the kernel's then the library call's median of 20
+    for i, library_name in enumerate(("torch.mul", "torch.add")):
+        launch, _, library, _ = timed[probe_kernels[i].name]
+        rounds = [(dma_probe.median_ms(launch, dev), dma_probe.median_ms(library, dev)) for _ in range(5)]
+        lost = sum(a > b for a, b in rounds)
+        log(f"  {probe_kernels[i].name} vs {library_name} in turns (ms): "
+            + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in rounds) + f"; the kernel slower in {lost} of 5")
+        out[i]["rounds"] = rounds
     ms_t = dma_probe.median_ms(lambda: dma_probe.launch3(x3, True, sums, o3), dev)
     out[2]["ms_transpose"] = ms_t
     log(f"  P3 with the shared-memory transpose: {ms_t:.4f} ms; cost "
@@ -1367,6 +1391,7 @@ def main() -> int:
     phase_fwd_bwd(scene, settings, k2["ms"], red_ms)
     base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
     train_launches, _ = phase_train(scene, base)
+    k1["launches"] += train_launches[k1["name"]]  # serving's 8 plus training's steps and probe
     k2["launches"] = train_launches[k2["name"]]
     # the per-tile family (packed=False)
     k3, settings_pt, ctx_pt = phase_k3(scene, settings, clock_mhz)
@@ -1374,7 +1399,9 @@ def main() -> int:
     k3["launches"] = phase_serve_per_tile(scene, cams)[k3["name"]]
     phase_grads_per_tile()
     phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, phase=14)
-    k4["launches"] = phase_train_per_tile(scene, dataclasses.replace(base, packed=False))[k4["name"]]
+    train_pt = phase_train_per_tile(scene, dataclasses.replace(base, packed=False))
+    k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
+    k4["launches"] = train_pt[k4["name"]]
     probes = phase_probes()
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)

@@ -10,7 +10,9 @@ packages, the JAX kernels in interpret mode.
   against a float64 index_add.
 - Full render gradients (means, cov, opacity, extrinsic, colors or SH,
   viewspace offset) against jax.grad of the JAX render at normalized
-  5e-4, and against the port's own oracle under autograd.
+  5e-4, also of a render binned with inference=True (no perm: the rows
+  reduce by their pre-sort slot keys), and against the port's own oracle
+  under autograd.
 The card-only tests of the CUDA kernel are in tests/test_torch_gpu.py."""
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu_torch.render import oracle as toracle
 from c3dgs_tpu_torch.render import rasterizer as trast
 from c3dgs_tpu_torch.render import tiles_packed as ttiles
+from c3dgs_tpu_torch.render.binning import bin_gaussians
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from test_torch_gpu import EV, SCENES, make_scene, render_grads
 from test_torch_render import _j, _t, k1_args, staged
@@ -209,13 +212,25 @@ def test_exec_clamped_frame_gradients_match_jax():
         assert_normalized(b, a, GRAD_TOL, name)
 
 
-def test_backward_of_inference_render_raises():
-    sc, kw = make_scene(50)
-    means = torch.tensor(sc["means"], requires_grad=True)
-    out = trast.render(means, _t(sc["cov"]), _t(sc["op"]), _t(EV), TSettings(**kw, inference=True),
-                       torch.zeros(3), colors_precomp=_t(sc["colors"]))
-    with pytest.raises(RuntimeError, match="inference=True"):
-        out["render"].sum().backward()
+@pytest.mark.parametrize("fast_grad", [False, True], ids=["exact", "fast_grad"])
+def test_backward_of_inference_render_matches_jax(fast_grad):
+    """A packed render binned with inference=True has no perm; its
+    backward reduces K2's rows by their pre-sort slot keys over the
+    executed chunks (c3dgs_tpu/render/rasterizer.py:365-372). Every
+    input's gradient against jax.grad of the JAX inference render, at
+    normalized 5e-4 (exact) or 5e-2 (fast_grad)."""
+    sc, kw = make_scene(150)
+    st = TSettings(**kw, inference=True)
+    prep = trast.preprocess(_t(sc["means"]), _t(sc["cov"]), _t(sc["op"]), _t(EV), st, None, _t(sc["colors"]))
+    assert bin_gaussians(prep, st).perm is None  # serving binning skips the sort
+    wimg = np.random.default_rng(7).normal(size=(3, kw["height"], kw["width"])).astype(np.float32)
+    gj = jax_grads(sc, kw, wimg, inference=True, fast_grad=fast_grad)
+    gt, _ = port_grads(sc, kw, wimg, inference=True, fast_grad=fast_grad)
+    tol = FAST_TOL if fast_grad else GRAD_TOL
+    for name, a, b in zip(NAMES, gj, gt):
+        assert b is not None and np.isfinite(b).all(), name
+        assert_normalized(b, a, tol, name)
+    assert np.abs(gt[0]).max() > 0 and np.abs(gt[5]).max() > 0
 
 
 def test_cpu_backward_is_deterministic():

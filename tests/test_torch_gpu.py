@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card: K1
 and K2 (packed) and K3 and K4 (per-tile) on the small scenes, K1 and K2
-on a scene of long tiles, K2's and K4's determinism (K4's on a clamped
-frame too), the DMA probes P1-P3, the CUDA render's gradients against the
+on a scene of long tiles, K3 and K4 where their windows reach each edge of
+their staging ring, K2's and K4's determinism (K4's on clamped frames
+too), the per-tile wrappers' refusal of misaligned fields, the DMA probes
+P1-P3, the CUDA render's gradients against the
 port's oracle and CPU path in both kernel families, and the SSIM gradient
 in fp32.
 
@@ -453,6 +455,89 @@ def test_k4_clamped_frame_is_deterministic():
     assert torch.equal(runs[0][9:], ref[9:])
 
 
+def window_spans(args):
+    """(first slot, instance count) of every window of a per-tile call."""
+    _, _, starts, ends, nch = (x.tolist() for x in args)
+    return [(s + w * 128, min(128, e - s - w * 128)) for s, e, n in zip(starts, ends, nch) for w in range(n)]
+
+
+# The redesigned K3/K4 stage each window's 16-byte aligned span (up to 132
+# floats) in a two-deep ring: scenes whose windows reach each edge of that
+# design, and the property each shows.
+WINDOW_EDGES = {
+    # windows start at every residue mod 4: the first group's lanes before
+    # the window are skipped
+    "residues": ("boundary", lambda spans, nch: {b % 4 for b, _ in spans} == {0, 1, 2, 3}),
+    # a tile of 3 or more windows refills both ring stages
+    "ring_wrap": ("long_tile", lambda spans, nch: int(nch.max()) >= 3),
+    # a full window from an unaligned slot ends past the last aligned group:
+    # its span is 33 groups, the stage's whole 132 floats
+    "ragged_end": ("long_tile", lambda spans, nch: any(b % 4 and n == 128 for b, n in spans)),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_EDGES))
+def test_window_edge_scenes_stage_on_cpu(case):
+    """The inputs of the card test below, through the CPU route: each
+    scene reaches its edge of the window ring."""
+    scene, has_edge = WINDOW_EDGES[case]
+    args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs(scene, "cpu")
+    assert has_edge(window_spans(args), args[4])
+    assert bool(torch.isfinite(tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(WINDOW_EDGES))
+def test_k3_k4_window_edges_match_plain(case):
+    """K3 and K4 against their plain versions where the windows reach an
+    edge of the ring: K3's rows 0-4 at atol 2e-5 / rtol 1e-4 and `stop`
+    exact, K4's rows 0-8 at normalized 5e-4 per row and its tags exact."""
+    _need_card()
+    scene, has_edge = WINDOW_EDGES[case]
+    args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs(scene, "cuda")
+    assert has_edge(window_spans(args), args[4])
+    out_p = tiles.forward_plain(*args, tiles_x)
+    torch.testing.assert_close(totals[:, :5], out_p[:, :5], **K1_TOL)
+    assert torch.equal(totals[:, 5:], out_p[:, 5:])
+    got = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap)
+    for r in range(9):
+        assert_normalized(got[r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(got[9:], ref[9:])
+
+
+@pytest.mark.gpu
+def test_k4_clamped_long_tile_frame_repeats_bitwise():
+    """The long-tile frame with 8 chunks fewer than its windows need: the
+    clamped windows' last writer alone fills the last chunk, two runs are
+    bitwise equal, and both match the plain version."""
+    _need_card()
+    args, grad_base, totals, g, tiles_x, _ = k4_inputs("long_tile", "cuda")
+    grad_cap = int(args[4].sum()) * 128 - 8 * 128
+    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap)
+    runs = [tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    for r in range(9):
+        assert_normalized(runs[0][r], ref[r], GRAD_TOL, f"row {r}")
+    assert torch.equal(runs[0][9:], ref[9:])
+
+
+@pytest.mark.gpu
+def test_per_tile_kernels_reject_misaligned_fields():
+    """The kernels stage fields with 16-byte bulk copies: a contiguous
+    copy one column off that alignment is refused by both wrappers."""
+    _need_card()
+    args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs("make_scene", "cuda")
+    fields = args[0]
+    shifted = torch.empty(fields.numel() + 1, device=fields.device)[1:].view(fields.shape)
+    shifted.copy_(fields)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tiles.forward(shifted, *args[1:], tiles_x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tiles.backward(shifted, *args[1:], grad_base, totals, g, tiles_x, grad_cap)
+
+
 def render_grads(render_fn, sc, kw, device, wimg=None, **over):
     """Gradients of sum(wimg * image) (wimg seeded when not given) with
     respect to means, cov, opacity, the extrinsic, the colors or SH and,
@@ -489,6 +574,22 @@ def test_render_gradients_on_card_match_oracle_and_cpu(scene):
         g_oracle, _ = render_grads(oracle.render_oracle, sc, kw, "cuda")
         for name, a, b in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_card, g_oracle):
             assert_normalized(a, b, GRAD_TOL, f"{name} vs oracle")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["make_scene", "wall"])
+def test_inference_render_gradients_on_card(scene):
+    """A packed render binned with inference=True (no perm) takes its
+    gradients on the card by the pre-sort slot keys: they match the
+    training binning's and the CPU path's at the exact-mode bar."""
+    _need_card()
+    sc, kw = make_scene(150) if scene == "make_scene" else SCENES[scene]()
+    g_inf, _ = render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False, inference=True)
+    g_train, _ = render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False)
+    g_cpu, _ = render_grads(rasterizer.render, sc, kw, "cpu", fast_grad=False, inference=True)
+    for name, a, b, c in zip(("means", "cov", "opacity", "extrinsic", "colors"), g_inf, g_train, g_cpu):
+        assert_normalized(a, b, GRAD_TOL, f"{name} vs the training binning")
+        assert_normalized(a, c, GRAD_TOL, f"{name} vs CPU path")
 
 
 @pytest.mark.gpu

@@ -28,8 +28,9 @@ from c3dgs_tpu.render import rasterizer as jrast
 from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu_torch.render import rasterizer as trast
 from c3dgs_tpu_torch.render import tiles as ttiles
+from c3dgs_tpu_torch.render import tiles_packed
 from test_torch_backward import FAST_TOL, GRAD_TOL, NAMES, assert_normalized, cotangent, jax_grads, port_grads
-from test_torch_gpu import SCENES, make_scene
+from test_torch_gpu import SCENES, k1_inputs, k3_inputs, make_scene
 from test_torch_render import IMG_TOL, _j, _t, jax_prep, render_both
 from test_torch_train import train_step_parity
 
@@ -82,6 +83,35 @@ def test_k3_plain_matches_jax_kernel(scene):
     stopped = int((out_t[:, 5, 0] < np.asarray(b.nchunks)).sum())
     if scene == "wall":
         assert stopped >= 1  # the saturation exit really skips windows here
+
+
+@pytest.mark.parametrize("scene", ["make_scene", "occluder", "wall", "boundary"])
+def test_k3_k4_plain_exp_counts(scene):
+    """chip_smoke.py's K3/K4 bounds count an exp only for the pairs the
+    kernels' skip keeps (`exp_pairs`). Every pair with alpha > 0 is one of
+    them, in each window walked before `stop`; where no tile saturates,
+    the per-tile walk evaluates the packed walk's pairs, and both plain
+    versions count the same exps."""
+    sc, kw = SCENES[scene]()
+    args, grad_base, st = k3_inputs(sc, kw, "cpu")
+    fields, tile_ids, starts, ends, nch = args
+    fwd, bwd = {}, {}
+    totals = ttiles.forward_plain(*args, st.tiles_x, stats=fwd)
+    g = torch.as_tensor(cotangent(st.num_tiles))
+    ttiles.backward_plain(*args, grad_base, totals, g, st.tiles_x, st.resolve_grad_cap(len(sc["means"])),
+                          stats=bwd)
+    assert fwd == bwd and 0 < fwd["alpha_pairs"] <= fwd["exp_pairs"] < fwd["pairs"]
+    stop = totals[:, 5, 0].long()
+    px, py = ttiles._pixel_coords(tile_ids, st.tiles_x)
+    for w in range(int(stop.max())):
+        a = torch.nonzero(w < stop).flatten()
+        f, seg = ttiles._window(fields, starts[a].long(), (ends[a] - starts[a]).long(), w)
+        _, _, power, alpha, _ = ttiles._alpha(f, px[a], py[a], seg)
+        assert not ((alpha > 0) & ~ttiles.needs_exp(f, power, seg)).any()
+    if scene != "wall":  # the wall's saturated tiles stop early in both walks, at other points
+        packed = {}
+        tiles_packed.forward_plain(*k1_inputs(sc, kw, "cpu"), stats=packed)
+        assert packed == fwd
 
 
 # --------------------------------------------------------------------- K4

@@ -382,3 +382,42 @@ def test_training_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# ------------------------------------------- packed against per-tile
+def family_losses(steps: int = 3) -> dict:
+    """train_step losses of both packages' kernel families from the same
+    scene: tests/synth.py's ground-truth scene (400 gaussians) seen by its
+    first ring camera at 64x64, trained toward its render with opacity
+    logits + 1. Returns {packed: (JAX losses, port losses)}."""
+    import synth
+
+    kw = dict(width=64, height=64, tanfovx=math.tan(0.45), tanfovy=math.tan(0.45), sh_degree=0)
+    ev = synth.ring_cameras()[0][0]
+    scene = synth.gt_scene()
+    jtarget = jtrainer.render_scene(scene.replace(opacity=scene.opacity + 1.0), jnp.asarray(ev), JSettings(**kw),
+                                    jnp.asarray(BG))["render"]
+    target = np.array(jtarget)
+    out = {}
+    for packed in (True, False):
+        jset, tset = JSettings(**kw, packed=packed), RasterSettings(**kw, packed=packed)
+        tstate = trainer.create_train_state(carry_over(scene), OptimizationParams(), 1.0, **CPU)
+        jstate = jtrainer.create_train_state(jax.tree.map(jnp.copy, scene), JOpt(), 1.0)  # train_step donates
+        jl, tl = [], []
+        for _ in range(steps):
+            jstate, jm = jtrainer.train_step(jstate, jnp.asarray(ev), jtarget, jset, jnp.asarray(BG), JOpt(), 1.0)
+            tstate, tm = trainer.train_step(tstate, ev, target, tset, BG, OptimizationParams(), 1.0, **CPU)
+            jl.append(float(jm["loss"]))
+            tl.append(float(tm["loss"]))
+        out[packed] = (jl, tl)
+    return out
+
+
+if __name__ == "__main__":
+    # How far the packed and per-tile families' losses part in each package
+    # over 3 steps on the CPU: PYTHONPATH=. python tests/test_torch_train.py
+    jax.config.update("jax_platforms", "cpu")
+    losses = family_losses()
+    for step, (jp, tp, jq, tq) in enumerate(zip(*losses[True], *losses[False]), 1):
+        print(f"step {step}: JAX packed {jp:.9f} per-tile {jq:.9f} (rel {(jp - jq) / jp:+.3e}); "
+              f"port packed {tp:.9f} per-tile {tq:.9f} (rel {(tp - tq) / tp:+.3e})")
