@@ -9,8 +9,9 @@ version beside it for CPU tensors.
 
 Entry points (from_point_cloud, scene_from_numpy, render_scene,
 render_full, render_and_eval, create_train_state, train_step,
-densify_step, reset_opacity_step, grow_capacity) run on the CUDA device
-unless the caller passes device="cpu".
+densify_step, reset_opacity_step, grow_capacity, calc_importance,
+to_compressed, finetune, load_npz) run on the CUDA device unless the
+caller passes device="cpu".
 """
 from .device import resolve_device
 

@@ -85,6 +85,16 @@ def fake_quant_affine(x: torch.Tensor, scale, zero_point) -> torch.Tensor:
     return _FakeQuantAffine.apply(x, scale, zero_point)
 
 
+def quantize_int8(x: torch.Tensor, state: ObserverState) -> torch.Tensor:
+    """The int8 representation for serialization (torch's int_repr)."""
+    scale, zp = qparams(state)
+    return torch.clamp(torch.round(x / scale + zp), QMIN, QMAX).to(torch.int8)
+
+
+def dequantize_int8(q: torch.Tensor, scale, zero_point) -> torch.Tensor:
+    return (q.to(torch.float32) - float(zero_point)) * float(scale)
+
+
 def fake_quant(x: torch.Tensor, state: ObserverState) -> torch.Tensor:
     """Quantize-dequantize with the observer's current range; identity while
     the observer is uninitialized (torch FakeQuantize's default)."""

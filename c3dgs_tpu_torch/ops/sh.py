@@ -1,9 +1,12 @@
 """Spherical-harmonics color evaluation, degrees 0..3 (port of
 c3dgs_tpu/ops/sh.py). Layout [..., K, 3] with K = (deg+1)^2, DC first.
-The codebook-indexed blocked evaluation comes with the indexed slice."""
+sh_to_rgb_indexed_blocked evaluates a codebook-indexed scene's colors
+block by block, without a dense (P, K, 3) SH array."""
 from __future__ import annotations
 
 import torch
+
+from .segment import gather_rows
 
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
@@ -80,6 +83,27 @@ def sh_to_rgb(
     if clamp_color:
         rgb = torch.clamp(rgb, min=0.0)
     return rgb
+
+
+def sh_to_rgb_indexed_blocked(
+    deg: int,
+    codebook: torch.Tensor,
+    indices: torch.Tensor,
+    dirs: torch.Tensor,
+    clamp_color: bool = True,
+    block: int = 1 << 18,
+) -> torch.Tensor:
+    """Per-splat RGB of a codebook-indexed scene: each block of `block`
+    splats gathers its (block, K, 3) codebook rows, evaluates them and
+    keeps only the (block, 3) colors, so a render without gradients never
+    holds more than one block's SH. codebook (C, K, 3), indices (P,) int64,
+    dirs (P, 3) unit."""
+    p = indices.shape[0]
+    out = [
+        sh_to_rgb(deg, gather_rows(codebook, indices[s : s + block]), dirs[s : s + block], clamp_color)
+        for s in range(0, max(p, 1), block)
+    ]
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def rgb_to_sh_dc(rgb):

@@ -30,7 +30,8 @@ from ..config import OptimizationParams
 from ..device import DeviceLike, resolve_device
 from ..models.gaussians import GaussianScene
 from ..ops import losses as L
-from ..ops import misc
+from ..ops import camera_math, misc
+from ..ops import sh as sh_ops
 from ..render.rasterizer import render
 from ..render.types import RasterSettings
 from . import densify as D
@@ -161,6 +162,12 @@ def settings_with_degree(settings: RasterSettings, degree: int) -> RasterSetting
     return dataclasses.replace(settings, sh_degree=degree)
 
 
+# indexed scenes at or above this capacity evaluate SH colors block by block
+# from the codebook instead of gathering a dense (P, K, 3) SH array first
+# (ops/sh.py::sh_to_rgb_indexed_blocked)
+BLOCKED_COLORS_MIN = 1 << 20
+
+
 def render_scene(
     scene: GaussianScene,
     extrinsic_vector,
@@ -169,9 +176,15 @@ def render_scene(
     viewspace_offset: Optional[torch.Tensor] = None,
     cov3d: Optional[torch.Tensor] = None,
     scaling_modifier: float = 1.0,
+    blocked_colors: Optional[bool] = None,
     device: DeviceLike = None,
 ) -> dict:
-    """GaussianModel.render on a dense scene: accessors -> rasterize.
+    """GaussianModel.render on a scene, dense or codebook-indexed:
+    accessors -> rasterize.
+
+    blocked_colors: for a color-indexed scene, compute per-splat RGB block
+    by block from the (C, K, 3) codebook instead of gathering dense SH
+    first; None = on at >= BLOCKED_COLORS_MIN splats.
 
     Runs on `device` (CUDA unless the caller names another); the scene must
     already live there, while the camera vector and bg may be numpy arrays
@@ -181,14 +194,30 @@ def render_scene(
     bg = torch.as_tensor(bg, dtype=torch.float32, device=scene.device)
     settings = settings_with_degree(settings, scene.active_sh_degree)
     cov = scene.get_covariance(scaling_modifier) if cov3d is None else cov3d
+    use_blocked = scene.is_color_indexed and (
+        blocked_colors or (blocked_colors is None and scene.capacity >= BLOCKED_COLORS_MIN)
+    )
+    shs = colors = None
+    xyz = scene.get_xyz()
+    if use_blocked:
+        dirs = xyz - camera_math.camera_center_from_extrinsic(ev)
+        # the guarded normalization of preprocess (NaN-free padded rows)
+        dirs = dirs * torch.rsqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-20)
+        colors = sh_ops.sh_to_rgb_indexed_blocked(
+            settings.sh_degree, scene.get_features_raw(), scene.feature_indices, dirs,
+            clamp_color=settings.clamp_color,
+        )
+    else:
+        shs = scene.get_features()
     return render(
-        scene.get_xyz(),
+        xyz,
         cov,
         scene.get_opacity()[:, 0],
         ev,
         settings,
         bg,
-        shs=scene.get_features(),
+        shs=shs,
+        colors_precomp=colors,
         viewspace_offset=viewspace_offset,
     )
 

@@ -64,7 +64,21 @@ Phases (any failed check raises, and the script exits non-zero):
      against its plain version on the tool's and seeded inputs, their
      times against their byte bounds and the launch overhead, and P1
      against torch.mul and P2 against torch.add in 5 alternating rounds;
- 17. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
+ 17. compress the 300k scene as compress.py does, with the default
+     CompressionParams and phase 4's 8 orbit views: the bench scene given
+     random rotations and scale directions (its kNN init makes every
+     splat alike in shape), phase 4's images as its photos, its own
+     uncompressed renders as the reference: to_compressed (sensitivity through K2 per
+     view, color and covariance VQ, each VQ run twice from its seed and
+     held bitwise), 12 finetune steps through the indexed scene (K1 + K2;
+     overflow 0, the caller's scene bit-identical, one step's codebook-row
+     gradients bitwise over two runs), save_npz (Morton order, fixed-point
+     xyz) and load_npz with their bytes, ratio and seconds, then
+     render_and_eval of the loaded scene (PSNR against the uncompressed
+     renders, the difference from the in-memory compressed renders, view
+     ms against the uncompressed scene's in turns), counts reset just
+     before each stage and read just after;
+ 18. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
      status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
@@ -77,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -85,9 +100,10 @@ import torch
 import torch.nn.functional as F
 
 from c3dgs_tpu_torch import kernels
-from c3dgs_tpu_torch.config import OptimizationParams
+from c3dgs_tpu_torch.compress import pipeline
+from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.eval import metrics
-from c3dgs_tpu_torch.models import gaussians
+from c3dgs_tpu_torch.models import gaussians, io_npz
 from c3dgs_tpu_torch.ops import losses, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
@@ -95,7 +111,7 @@ from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import dma_probe, scenes
-from c3dgs_tpu_torch.train import trainer
+from c3dgs_tpu_torch.train import finetune, trainer
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1369,6 +1385,186 @@ def phase_probes():
     return out
 
 
+
+# -------------------------------------------------------- compression
+NPZ_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def view_ms(scene, cams, policy):
+    """Per-view ms (CUDA events) of render_full over the cameras."""
+    out = []
+    for cam in cams:
+        settings = settings_from_intrinsic(cam.intrinsic, inference=True)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        metrics.render_full(scene, cam.extrinsic_vector, settings, np.zeros(3), policy, device=DEVICE)
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def phase_compress(scene, cams, serve_ms, finetune_steps=12):
+    """Compress the bench scene as compress.py does (to_compressed ->
+    finetune -> save_npz -> load_npz -> render_and_eval) with the default
+    CompressionParams; the finetune's depth is cut from 5,000 steps. The
+    8 orbit views of phase 4 are the cameras, their uncompressed renders
+    the images. Each stage runs with the kernel counts reset just before
+    and read just after; returns the summed launches."""
+    log(f"== phase 17: compress the 300k scene (to_compressed, finetune {finetune_steps} steps, save_npz, "
+        "load_npz, render_and_eval)")
+    comp = CompressionParams()
+    # the bench scene with shapes as a trained scene has them: its kNN init
+    # leaves every splat isotropic with the identity rotation, so every
+    # normalized covariance is the same and the covariance VQ would need
+    # one codebook row. Random rotations and scale directions from a third
+    # seed; quantization on, as compress.py loads a trained scene. Phase
+    # 4's renders of the bench scene stand in for the photos (sensitivity
+    # and finetune), which the reshaped scene matches only roughly, as a
+    # trained scene matches its photos: against its own renders every
+    # photometric gradient would be zero. The reshaped scene's renders are
+    # the uncompressed reference the served npz is scored against.
+    src = scene.clone()
+    rng = np.random.default_rng(2)
+    with torch.no_grad():
+        src.rotation.copy_(torch.as_tensor(rng.normal(size=tuple(src.rotation.shape)), dtype=torch.float32))
+        src.scaling.copy_(torch.as_tensor(np.abs(rng.normal(size=tuple(src.scaling.shape))) + 0.05,
+                                          dtype=torch.float32))
+    src.quantization = True
+    src.update_observers()
+    policy = CapacityPolicy()
+    ref_cams = [
+        SimpleNamespace(intrinsic=c.intrinsic, extrinsic_vector=c.extrinsic_vector, image_name=c.image_name,
+                        original_image=metrics.render_full(src, c.extrinsic_vector, settings_from_intrinsic(
+                            c.intrinsic, inference=True), np.zeros(3), policy, device=DEVICE)["render"].clone())
+        for c in cams
+    ]
+    photo_psnr = [float(losses.psnr(r.original_image, c.original_image)[0, 0]) for r, c in zip(ref_cams, cams)]
+    log(f"  the reshaped scene's renders against the photos (phase 4's images): PSNR "
+        f"{[round(p, 3) for p in photo_psnr]}")
+    total = {k.name: 0 for k in kernels.REGISTRY.values()}
+
+    def add(stage):
+        torch.cuda.synchronize()
+        got = {k.name: k.launches for k in kernels.REGISTRY.values()}
+        for k, v in got.items():
+            total[k] += v
+        log(f"  {stage}: kernel launches {got}")
+        return got
+
+    # sensitivity through K2, then the two VQ stages; each vq_features call
+    # is recorded so it can be run again from its seed
+    vq_calls = []
+    real_vq = pipeline.vq_features
+
+    def recorded_vq(*a, **kw):
+        out = real_vq(*a, **kw)
+        vq_calls.append((a, kw, out))
+        return out
+
+    timings = {}
+    kernels.reset_counts()
+    pipeline.vq_features = recorded_vq
+    try:
+        compressed = pipeline.to_compressed(src, cams, comp, timings=timings, device=DEVICE)
+    finally:
+        pipeline.vq_features = real_vq
+    got = add("to_compressed")
+    compressed.check_state()
+    n = compressed.capacity
+    log(f"  sensitivity {timings['sensitivity_calculation']:.3f} s, clustering {timings['clustering']:.3f} s")
+    log(f"  pruned {1 - n / src.capacity:.4%} of {src.capacity} splats; {n} left")
+    for what, idx, size in (("color", compressed.feature_indices, comp.color_codebook_size),
+                            ("covariance", compressed.gaussian_indices, comp.gaussian_codebook_size)):
+        kept = int((idx >= size).sum())
+        used = int(torch.unique(idx[idx < size]).numel())
+        log(f"  {what}: {kept / n:.4%} of the splats kept dense, {used} of {size} codebook rows used")
+    assert got["tiles_packed_bwd"] >= len(cams), "sensitivity did not backpropagate each view through K2"
+    assert got["tiles_packed_fwd"] == got["tiles_packed_bwd"], got
+    assert len(vq_calls) == 2, "expected the color and the covariance VQ"
+    for what, (a, kw, (cb, idx)) in zip(("color", "covariance"), vq_calls):
+        cb2, idx2 = real_vq(*a, **kw)
+        assert torch.equal(cb, cb2) and torch.equal(idx, idx2), f"{what} VQ differs between two runs of one seed"
+        log(f"  {what} VQ run twice from one seed: codebook {tuple(cb.shape)} and indices bitwise equal")
+
+    # the QAT finetune through the indexed scene (K1 + K2); the caller's
+    # scene must keep its bits
+    before = {k: v.clone() for k, v in compressed.state_dict().items()}
+    hist = []
+    kernels.reset_counts()
+    tuned = finetune.finetune(compressed, cams, OptimizationParams(), finetune_steps, log_every=0, history=hist,
+                              device=DEVICE)
+    got = add("finetune")
+    log(f"  losses: {[round(h['loss'], 6) for h in hist]}")
+    log(f"  ms per step: {[round(h['ms'], 3) for h in hist]}; median of steps 2-{finetune_steps} "
+        f"{statistics.median(h['ms'] for h in hist[1:]):.3f}")
+    assert all(math.isfinite(h["loss"]) for h in hist), "non-finite finetune loss"
+    assert all(h["overflow"] == 0 and h["grad_overflow"] == 0 for h in hist), f"overflow in the finetune: {hist}"
+    assert got["tiles_packed_bwd"] == finetune_steps and got["tiles_packed_fwd"] == finetune_steps + 1, got
+    assert all(torch.equal(before[k], v) for k, v in compressed.state_dict().items()), \
+        "finetune changed the caller's scene"
+    log("  the caller's compressed scene is bit-identical after the finetune")
+    ev = torch.as_tensor(cams[0].extrinsic_vector, device=DEVICE)
+    settings = probe_policy(tuned, settings_from_intrinsic(cams[0].intrinsic), ev, torch.zeros(3, device=DEVICE)) \
+        .apply(settings_from_intrinsic(cams[0].intrinsic))
+    grads = [trainer.loss_and_grads(tuned, ev, cams[0].original_image, settings, torch.zeros(3, device=DEVICE),
+                                    OptimizationParams())[2] for _ in range(2)]
+    for k in ("features_dc", "features_rest", "scaling", "rotation"):
+        assert torch.equal(grads[0][k], grads[1][k]), f"the {k} codebook-row gradient differs between two runs"
+    log(f"  one step's codebook-row gradients (features_dc {tuple(grads[0]['features_dc'].shape)}, "
+        f"scaling {tuple(grads[0]['scaling'].shape)}, ...) bitwise equal over two runs")
+
+    # the npz as compress.py writes it (Morton order, fixed-point xyz), and
+    # the uncompressed scene's npz for the ratio
+    NPZ_DIR.mkdir(parents=True, exist_ok=True)
+    path = NPZ_DIR / "compressed.npz"
+    t0 = time.perf_counter()
+    saved = io_npz.save_npz(tuned, path, sort_morton=True, xyz_u16=True)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = io_npz.load_npz(path, device=DEVICE)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    io_npz.save_npz(src, NPZ_DIR / "uncompressed.npz")
+    size, base_size = path.stat().st_size, (NPZ_DIR / "uncompressed.npz").stat().st_size
+    log(f"  npz {size} B ({size / saved.capacity:.2f} B per splat), the uncompressed scene's npz {base_size} B: "
+        f"ratio {base_size / size:.3f}; encode {encode_s:.3f} s, decode {decode_s:.3f} s")
+    assert loaded.capacity == saved.capacity and loaded.is_color_indexed and loaded.is_gaussian_indexed
+
+    # serve the loaded scene through K1
+    kernels.reset_counts()
+    results = metrics.render_and_eval(loaded, ref_cams, device=DEVICE)
+    got = add("render_and_eval of the loaded npz")
+    psnrs = [v["psnr"] for v in results["per_view"].values()]
+    log(f"  PSNR against the uncompressed renders: {[round(p, 3) for p in psnrs]}; mean {results['psnr']:.4f}; "
+        f"SSIM mean {results['ssim']:.6f}")
+    assert results["num_views"] == len(cams) and all(math.isfinite(p) for p in psnrs)
+    assert got["tiles_packed_fwd"] == results["num_renders"] and got["tiles_packed_bwd"] == 0, got
+    policy = CapacityPolicy()
+    diffs = []
+    for cam in ref_cams:
+        settings = settings_from_intrinsic(cam.intrinsic, inference=True)
+        a = metrics.render_full(loaded, cam.extrinsic_vector, settings, np.zeros(3), policy, device=DEVICE)
+        b = metrics.render_full(tuned, cam.extrinsic_vector, settings, np.zeros(3), policy, device=DEVICE)
+        assert int(a["overflow"]) == 0 and bool(torch.isfinite(a["render"]).all())
+        diffs.append((float((a["render"] - b["render"]).abs().max()), float(losses.psnr(a["render"], b["render"])[0, 0])))
+    log(f"  loaded vs in-memory compressed renders (Morton order, fixed-point xyz, requantized): max|diff| "
+        f"{[round(d, 6) for d, _ in diffs]}; PSNR {[round(p, 3) for _, p in diffs]}")
+    # served view time, the loaded compressed scene against the uncompressed
+    # one in turns, after a warm-up pass of each
+    view_ms(loaded, ref_cams, policy)
+    view_ms(src, ref_cams, policy)
+    comp_ms, base_ms = [], []
+    for _ in range(2):
+        comp_ms += view_ms(loaded, ref_cams, policy)
+        base_ms += view_ms(src, ref_cams, policy)
+    log(f"  served view ms, compressed: {[round(m, 3) for m in comp_ms]}; median {statistics.median(comp_ms):.3f}")
+    log(f"  served view ms, uncompressed: {[round(m, 3) for m in base_ms]}; median {statistics.median(base_ms):.3f} "
+        f"(phase 4: median {statistics.median(serve_ms):.3f})")
+    log(f"  K1 and K2 launches over the phase: {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1383,7 +1579,7 @@ def main() -> int:
     scene, knn_s = bench_scene(DEVICE, BENCH_N)
     log(f"  bench scene: {BENCH_N} splats, kNN scale init {knn_s:.2f} s on the card")
     k1, settings, ctx = phase_k1(scene, clock_mhz)
-    launches, _, cams = phase_serve(scene, settings)
+    launches, serve_ms, cams = phase_serve(scene, settings)
     k1["launches"] = launches[k1["name"]]
     phase_breakdown(scene, settings)
     phase_grads()
@@ -1403,6 +1599,9 @@ def main() -> int:
     k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
     k4["launches"] = train_pt[k4["name"]]
     probes = phase_probes()
+    compress_launches = phase_compress(scene, cams, serve_ms)
+    k1["launches"] += compress_launches[k1["name"]]  # sensitivity, finetune and serving the npz
+    k2["launches"] += compress_launches[k2["name"]]  # sensitivity and finetune
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
     print(card, flush=True)

@@ -4,8 +4,11 @@ on a scene of long tiles, K3 and K4 where their windows reach each edge of
 their staging ring, K2's and K4's determinism (K4's on clamped frames
 too), the per-tile wrappers' refusal of misaligned fields, the DMA probes
 P1-P3, the CUDA render's gradients against the
-port's oracle and CPU path in both kernel families, and the SSIM gradient
-in fp32.
+port's oracle and CPU path in both kernel families, the SSIM gradient
+in fp32, and the compression path: an indexed scene's render and
+codebook gradients against the CPU path, bitwise-repeatable VQ and
+codebook gradients, fp32 nearest-codebook search, two finetune steps and
+eigh past cuSOLVER's batch limit.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -13,19 +16,27 @@ JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
 skip. It also holds the seeded test scenes that tests/test_torch_render.py
 and tests/test_torch_backward.py feed to both packages.
 """
+import copy
+import dataclasses
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from c3dgs_tpu_torch.ops import losses, quat
+from c3dgs_tpu_torch import kernels
+from c3dgs_tpu_torch.compress import pipeline, vq
+from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
+from c3dgs_tpu_torch.models import gaussians
+from c3dgs_tpu_torch.ops import losses, quat, segment
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.preprocess import preprocess
-from c3dgs_tpu_torch.render.types import RasterSettings
+from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import dma_probe as tprobe
 from c3dgs_tpu_torch.tools import scenes
+from c3dgs_tpu_torch.train import finetune, trainer
 
 EV = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # the reference's bar, tests/test_render.py:113
@@ -669,3 +680,151 @@ def test_ssim_gradient_on_card_is_fp32():
         return x.grad
 
     assert_normalized(grad(a, b, "cuda", torch.float32), grad(a, b, "cpu", torch.float64), 2e-5, "ssim grad", floor=0.0)
+
+
+# ------------------------------------------------ compression, indexed scenes
+def compressed_toy(device, n=400):
+    """A quantized 400-splat scene with SH degree 3 and varied shapes, two
+    64x64 views whose images are the renders of a copy with opacity
+    logits + 1 (so the photometric gradients are not zero), and the scene
+    compressed with 64-row codebooks and 8 k-means steps."""
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.6
+    pts[:, 2] += 3.5
+    scene = gaussians.from_point_cloud(pts, rng.random(size=(n, 3)).astype(np.float32), capacity=n,
+                                       quantization=True, device=device)
+    with torch.no_grad():
+        scene.features_rest.copy_(torch.as_tensor(rng.normal(size=(n, 15, 3)) * 0.1, dtype=torch.float32))
+        scene.rotation.copy_(torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32))
+        scene.scaling.copy_(torch.as_tensor(np.abs(rng.normal(size=(n, 3))) + 0.1, dtype=torch.float32))
+    scene.active_sh_degree = 3
+    scene.update_observers()
+    intrinsic = np.array([[1.0, 0, 64], [0, 1.0, 64], [0, 0, 1]])
+    cams = []
+    for ev in (EV, np.array([0, 0.06, 0, 0.998, 0.2, 0, 0], np.float32)):
+        target = scene.clone()
+        with torch.no_grad():
+            target.opacity += 1.0
+            img = trainer.render_scene(target, ev, settings_from_intrinsic(intrinsic), np.zeros(3),
+                                       device=device)["render"]
+        cams.append(SimpleNamespace(extrinsic_vector=ev, intrinsic=intrinsic, original_image=img))
+    comp = dataclasses.replace(
+        CompressionParams(), color_codebook_size=64, gaussian_codebook_size=64, color_cluster_iterations=8,
+        gaussian_cluster_iterations=8, color_batch_size=128, gaussian_batch_size=128,
+    )
+    return scene, cams, pipeline.to_compressed(scene, cams, comp, silent=True, device=device)
+
+
+def test_compressed_toy_builds_on_cpu():
+    """The card tests' compressed scene, built here through the CPU route."""
+    scene, cams, comp = compressed_toy("cpu")
+    comp.check_state()
+    assert comp.is_color_indexed and comp.is_gaussian_indexed
+    assert comp.features_dc.shape[0] < comp.capacity and comp.scaling.shape[0] < comp.capacity
+    with torch.no_grad():
+        img, ref = (trainer.render_scene(s, EV, settings_from_intrinsic(cams[0].intrinsic), np.zeros(3),
+                                         device="cpu")["render"] for s in (comp, scene))
+    assert float(losses.psnr(img, ref)[0, 0]) > 20
+
+
+@pytest.mark.gpu
+def test_indexed_render_on_card_matches_cpu():
+    """An indexed scene on the card (compressed on the CPU, then moved):
+    image at atol 2e-5 / rtol 1e-4 and codebook-table gradients at
+    normalized 5e-4 (exact mode) against the CPU path; the blocked-colors
+    branch and the serving (inference) render give the same image."""
+    _need_card()
+    _, cams, comp = compressed_toy("cpu")
+    card = copy.deepcopy(comp).to("cuda")
+    settings = dataclasses.replace(settings_from_intrinsic(cams[1].intrinsic), fast_grad=False)
+    tables = ("features_dc", "features_rest", "scaling", "rotation")
+    out = {}
+    for dev, sc in (("cpu", comp), ("cuda", card)):
+        o = trainer.render_scene(sc, cams[1].extrinsic_vector, settings, np.zeros(3), device=dev)
+        gt = torch.as_tensor(cams[1].original_image, device=dev)
+        grads = torch.autograd.grad(losses.photometric_loss(o["render"], gt), [getattr(sc, k) for k in tables])
+        out[dev] = (o["render"].detach(), grads)
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], **IMG_TOL)
+    for name, a, b in zip(tables, out["cuda"][1], out["cpu"][1]):
+        assert_normalized(a, b, GRAD_TOL, name)
+    with torch.no_grad():
+        for s, blocked in ((settings, True), (dataclasses.replace(settings, inference=True), None)):
+            o = trainer.render_scene(card, cams[1].extrinsic_vector, s, np.zeros(3), blocked_colors=blocked,
+                                     device="cuda")
+            torch.testing.assert_close(o["render"].cpu(), out["cpu"][0], **IMG_TOL)
+
+
+@pytest.mark.gpu
+def test_vq_and_codebook_gradients_repeat_bitwise_on_card():
+    """The color VQ from one seed twice, and the gradient of a 4096-row
+    table read by 2^20 rows twice: the same bits. nearest_codebook in full
+    fp32 even when the caller allows TF32: min distances at atol 5e-3 of a
+    float64 reference, where a TF32 product errs by more than 5e-2."""
+    _need_card()
+    rng = np.random.default_rng(0)
+    feats = torch.as_tensor(rng.normal(size=(50_000, 48)), dtype=torch.float32, device="cuda")
+    imp = torch.as_tensor(rng.random(50_000) ** 3, dtype=torch.float32, device="cuda")
+    runs = [vq.vq_features(feats, imp, 4096, 1 << 14, steps=20) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert int(torch.unique(runs[0][1]).numel()) > 1000
+    idx = torch.as_tensor(rng.integers(0, 4096, 1 << 20), device="cuda")
+    g = torch.as_tensor(rng.normal(size=(1 << 20, 16, 3)), dtype=torch.float32, device="cuda")
+    grads = []
+    for _ in range(2):
+        table = torch.zeros((4096, 16, 3), device="cuda", requires_grad=True)
+        (segment.gather_rows(table, idx) * g).sum().backward()
+        grads.append(table.grad)
+    assert torch.equal(grads[0], grads[1])
+    ref = torch.zeros((4096, 16, 3), dtype=torch.float64).index_add_(0, idx.cpu(), g.cpu().double())
+    assert_normalized(grads[0], ref, 1e-6, "gather gradient", floor=0.0)
+    cb = torch.as_tensor(rng.normal(size=(4096, 48)) * 3, dtype=torch.float32, device="cuda")
+    x = cb[torch.as_tensor(rng.integers(0, 4096, 20_000), device="cuda")] + 0.3 * torch.randn(
+        20_000, 48, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    prev = torch.backends.cuda.matmul.fp32_precision
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        d, i = vq.nearest_codebook(x, cb)
+        cross_tf32 = (x @ cb.T).double().cpu()  # what the caller's setting gives a plain matmul
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = prev
+    dist = torch.cdist(x.double().cpu(), cb.double().cpu()) ** 2
+    assert torch.equal(i.cpu(), dist.argmin(1))
+    # |x|^2 and 2 x.c are ~900 here: fp32 cancellation errs by ~5e-4, TF32
+    # (10-bit mantissa) by ~0.1
+    torch.testing.assert_close(d.double().cpu(), dist.min(1).values, rtol=0, atol=5e-3)
+    assert float((cross_tf32 - x.double().cpu() @ cb.double().cpu().T).abs().max()) > 5e-2
+
+
+@pytest.mark.gpu
+def test_finetune_two_steps_on_card_without_overflow():
+    """to_compressed and two finetune steps on the card: one K2 launch per
+    sensitivity view, K1 + K2 per step (plus the probe's K1), overflow 0,
+    finite losses, and the caller's scene unchanged bit for bit."""
+    _need_card()
+    kernels.reset_counts()
+    _, cams, comp = compressed_toy("cuda")
+    torch.cuda.synchronize()
+    assert tiles_packed.BACKWARD_KERNEL.launches == 2 and tiles_packed.FORWARD_KERNEL.launches == 2 + 2
+    before = {k: v.clone() for k, v in comp.state_dict().items()}
+    kernels.reset_counts()
+    hist = []
+    out = finetune.finetune(comp, cams, OptimizationParams(), 2, log_every=0, history=hist, device="cuda")
+    torch.cuda.synchronize()
+    assert (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches) == (3, 2)
+    assert all(h["overflow"] == 0 and h["grad_overflow"] == 0 and math.isfinite(h["loss"]) for h in hist)
+    assert all(torch.equal(before[k], v) for k, v in comp.state_dict().items())
+    assert not torch.equal(out.features_dc, comp.features_dc)
+
+
+@pytest.mark.gpu
+def test_extract_rot_scale_on_card_past_one_eigh_batch():
+    """40,000 covariances (cuSOLVER's batched eigh refuses 32,768 at once):
+    the covariance rebuilt from the card's (rotation, scale) against the
+    input at atol 1e-5 / rtol 1e-5."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.normal(size=(40_000, 4)), dtype=torch.float32)
+    s = torch.as_tensor(np.abs(rng.normal(size=(40_000, 3))) + 0.05, dtype=torch.float32)
+    cov = quat.build_covariance(s, q)
+    r, sc = quat.extract_rot_scale(cov.cuda())
+    torch.testing.assert_close(quat.build_covariance(sc, r).cpu(), cov, atol=1e-5, rtol=1e-5)

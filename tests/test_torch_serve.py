@@ -22,13 +22,19 @@ from c3dgs_tpu.eval import metrics as jmetrics
 from c3dgs_tpu.models import gaussians as jgauss
 from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu.render.types import settings_from_intrinsic as jsettings_from_intrinsic
+from c3dgs_tpu.train import trainer as jtrainer
 from c3dgs_tpu_torch import device as tdevice
+from c3dgs_tpu_torch.compress import importance as timportance
+from c3dgs_tpu_torch.compress import pipeline as tpipeline
+from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.eval import metrics as tmetrics
 from c3dgs_tpu_torch.models import gaussians as tgauss
+from c3dgs_tpu_torch.models import io_npz as tio
 from c3dgs_tpu_torch.render.capacity import MIN_CAPACITY, CapacityPolicy
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from c3dgs_tpu_torch.render.types import settings_from_intrinsic
 from c3dgs_tpu_torch.tools import dma_probe as tprobe
+from c3dgs_tpu_torch.train import finetune as tfinetune
 from c3dgs_tpu_torch.train import trainer as ttrainer
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -135,9 +141,20 @@ def test_bench_recipe_matches_jax():
 
 
 def test_indexed_scene_raises():
+    """An indexed scene carries across and renders JAX's image; what still
+    raises on one is growing it, which the JAX scene refuses too (it
+    asserts "grow dense scenes only")."""
     js = jax_scene(False).to_indexed()
-    with pytest.raises(NotImplementedError, match="indexed"):
-        carry_over(js)
+    ts = carry_over(js)
+    assert ts.is_color_indexed and ts.is_gaussian_indexed and ts.feature_indices.dtype == torch.int64
+    kw = dict(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=3)
+    oj = jax.jit(jtrainer.render_scene, static_argnums=(2,))(js, jnp.asarray(EV), JSettings(**kw), jnp.zeros(3))
+    oj = oj["render"]
+    with torch.no_grad():
+        ot = ttrainer.render_scene(ts, EV, TSettings(**kw), np.zeros(3), device="cpu")
+    np.testing.assert_allclose(ot["render"].numpy(), np.asarray(oj), **IMG_TOL)
+    with pytest.raises(ValueError, match="dense"):
+        ts.pad_to_capacity(ts.capacity + 8)
 
 
 # ------------------------------------------------------------- capacity
@@ -224,7 +241,8 @@ def test_settings_from_intrinsic_matches_jax():
 def test_package_imports_no_jax():
     code = (
         "import sys, c3dgs_tpu_torch, c3dgs_tpu_torch.eval.metrics, c3dgs_tpu_torch.render.rasterizer, "
-        "c3dgs_tpu_torch.tools.dma_probe; "
+        "c3dgs_tpu_torch.tools.dma_probe, c3dgs_tpu_torch.compress.pipeline, c3dgs_tpu_torch.train.finetune, "
+        "c3dgs_tpu_torch.models.io_npz; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax', 'c3dgs_tpu.')) "
         "or m == 'c3dgs_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -261,6 +279,10 @@ def test_entry_points_raise_without_cuda_unless_cpu(monkeypatch):
         lambda: tmetrics.render_full(scene, EV, settings, np.zeros(3)),
         lambda: tmetrics.render_and_eval(scene, []),
         lambda: carry_over(jax_scene(False), device=None),
+        lambda: tio.load_npz("scene.npz"),
+        lambda: timportance.calc_importance(scene, []),
+        lambda: tpipeline.to_compressed(scene, [], CompressionParams()),
+        lambda: tfinetune.finetune(scene.to_indexed(), [], OptimizationParams(), 1),
         tprobe.main,
         tprobe.probe1,
     ):
