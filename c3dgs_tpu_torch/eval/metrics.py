@@ -1,10 +1,12 @@
 """Evaluation: render views through the capacity policy and score them with
-PSNR / SSIM (port of c3dgs_tpu/eval/metrics.py: render_full and
-render_and_eval). LPIPS needs pretrained weights that are not in the repo
-and is reported as null with the reason, as the JAX package does.
+PSNR / SSIM (port of c3dgs_tpu/eval/metrics.py: render_full,
+render_and_eval, write_results). LPIPS needs pretrained weights that are
+not in the repo and is reported as null with the reason, as the JAX
+package does.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import List, Optional
 
@@ -38,6 +40,12 @@ def render_full(scene, extrinsic_vector, settings, bg, policy=None, device: Devi
             break
     out["renders"] = attempt
     return out
+
+
+def view_psnr(img: torch.Tensor, gt) -> float:
+    """PSNR of one rendered view against its image (the PSNR half of the
+    JAX package's _jit_metrics)."""
+    return float(L.psnr(img, torch.as_tensor(gt, dtype=torch.float32, device=img.device))[0, 0])
 
 
 def _to_png(path: str, img_chw: np.ndarray) -> None:
@@ -82,7 +90,7 @@ def render_and_eval(
         renders += out["renders"]
         img = out["render"]
         gt = torch.as_tensor(cam.original_image, dtype=torch.float32, device=dev)
-        p = float(L.psnr(img, gt)[0, 0])
+        p = view_psnr(img, gt)
         s = float(L.ssim(img, gt))
         psnrs.append(p)
         ssims.append(s)
@@ -114,3 +122,12 @@ def render_and_eval(
         results["size_bytes"] = os.path.getsize(npz_path)
     results["per_view"] = per_view
     return results
+
+
+def write_results(model_path: str, results: dict) -> None:
+    """results.json (the means) and per_view.json; pops `per_view`."""
+    per_view = results.pop("per_view", {})
+    with open(os.path.join(model_path, "results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    with open(os.path.join(model_path, "per_view.json"), "w") as f:
+        json.dump(per_view, f, indent=2)

@@ -480,12 +480,11 @@ def from_point_cloud(
     opacity = np.full((cap, 1), float(misc.inverse_sigmoid(initial_opacity)), np.float32)
 
     if knn_scale_init and n > 3:
+        pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
         if n > misc.EXACT_KNN_MAX_POINTS:
-            raise NotImplementedError(
-                f"kNN scale init above {misc.EXACT_KNN_MAX_POINTS} points needs the "
-                "Morton-window kNN, which arrives with a later slice"
-            )
-        dist2 = misc.mean_knn_sq_dist(torch.as_tensor(points, dtype=torch.float32, device=dev))
+            dist2 = misc.mean_knn_sq_dist_large(pts)
+        else:
+            dist2 = misc.mean_knn_sq_dist(pts)
         dist2 = np.maximum(dist2.cpu().numpy(), 1e-7)
         log_scale = 0.5 * np.log(dist2)
     else:

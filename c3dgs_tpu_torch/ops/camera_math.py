@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 ZNEAR = 0.01
@@ -62,3 +63,27 @@ def intrinsic_geometry(intrinsic) -> tuple[int, int, float, float, float, float]
 def ndc_to_pix(v: torch.Tensor, size: int) -> torch.Tensor:
     """NDC [-1,1] -> pixel coordinate (auxiliary.h ndc2Pix)."""
     return ((v + 1.0) * size - 1.0) * 0.5
+
+
+def mat_to_extrinsic(m, normed: bool = True) -> np.ndarray:
+    """4x4 (or 3x4) world-to-camera numpy matrix -> 7-vector of m's dtype
+    (the JAX helper's numpy branch): the quaternion of m[:3, :3] in
+    float32 through the branch-free rotmat_to_quat, normalized in python
+    floats."""
+    from .quat import rotmat_to_quat
+
+    m = np.asarray(m)
+    q = rotmat_to_quat(torch.as_tensor(np.asarray(m[:3, :3], np.float32)))
+    w, x, y, z = (float(q[i]) for i in range(4))
+    if normed:
+        n = (x * x + y * y + z * z + w * w) ** 0.5
+        x, y, z, w = x / n, y / n, z / n, w / n
+    return np.stack([np.asarray(v, dtype=m.dtype) for v in (x, y, z, w, m[0, 3], m[1, 3], m[2, 3])])
+
+
+def fov_to_focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal_to_fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))

@@ -1,6 +1,6 @@
 """Small math helpers (port of c3dgs_tpu/ops/misc.py: inverse_sigmoid, the
-LR schedule and the exact chunked kNN; the Morton-window kNN for > 600k
-points comes with a later slice)."""
+LR schedule, the exact chunked kNN and the Morton-window kNN that replaces
+it above EXACT_KNN_MAX_POINTS)."""
 from __future__ import annotations
 
 import math
@@ -8,8 +8,11 @@ import math
 import numpy as np
 import torch
 
-# exact-path ceiling of c3dgs_tpu.ops.misc: above it the JAX package switches
-# to the Morton-window approximation, which this port does not have yet
+from . import morton
+
+# exact-path ceiling of c3dgs_tpu.ops.misc: the exact kNN builds a
+# (4096, N) block per chunk; above it models/gaussians.py::from_point_cloud
+# takes the Morton-window approximation, as the JAX package does
 EXACT_KNN_MAX_POINTS = 600_000
 
 
@@ -70,4 +73,25 @@ def mean_knn_sq_dist(xyz: torch.Tensor, k: int = 3, chunk: int = 4096) -> torch.
         d[idx - lo, idx] = float("inf")
         nearest = torch.topk(d, k, dim=1, largest=False).values
         out[lo:hi] = torch.clamp(nearest, min=0.0).mean(dim=1)
+    return out
+
+
+def mean_knn_sq_dist_large(xyz: torch.Tensor, k: int = 3, window: int = 32) -> torch.Tensor:
+    """Approximate mean squared distance to the k nearest neighbours for
+    big clouds: sort by Morton code (on the host), take each point's k
+    nearest among its +-window neighbours in Morton order. Memory
+    O(N * window). torch.roll wraps, so the first and last `off` rows also
+    see far-away points: real points, so at worst an overestimate, which
+    the only consumer (a log-scale init) tolerates."""
+    n = xyz.shape[0]
+    order = torch.as_tensor(morton.morton_order(xyz.detach().cpu().numpy()), device=xyz.device)
+    xs = xyz[order]
+    ds = []
+    for off in range(1, window + 1):
+        for sgn in (1, -1):
+            ds.append(torch.sum((xs - torch.roll(xs, sgn * off, dims=0)) ** 2, dim=1))
+    nearest = torch.topk(torch.stack(ds, dim=1), k, dim=1, largest=False).values
+    mean_k = torch.clamp(nearest, min=0.0).mean(dim=1)
+    out = torch.empty(n, dtype=mean_k.dtype, device=xyz.device)
+    out[order] = mean_k
     return out

@@ -78,7 +78,22 @@ Phases (any failed check raises, and the script exits non-zero):
      renders, the difference from the in-memory compressed renders, view
      ms against the uncompressed scene's in turns), counts reset just
      before each stage and read just after;
- 18. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
+ 18. from disk through the CLIs: tools/datasets.py writes a COLMAP folder
+     of the bench scene (its 300,000 points and DC colors as points3D.bin,
+     one PINHOLE 1920x1080 camera at phase 4's fov, 24 orbit poses with
+     their K1 renders as the photos); cli.train (-r 1 --eval --epochs 8
+     --eval_every 4: densify at epochs 2 and 3, opacity reset and SH
+     warm-up every epoch), cli.compress (12 finetune steps, the other
+     flags from cfg_args.json), cli.render and cli.metrics run in this
+     process; each CLI's K1 and K2 launches, reset just before and read
+     just after, equal the calls that launch them (train_step, the eval
+     renders, sensitivity, finetune); the log, the saved .ply against the
+     final state, results.json, times.json, the PNG dump and its scores
+     checked, and the npz from disk served again; dataset write s, Scene
+     load s, s per epoch, ms per step (its image decode and its metric
+     reads), eval ms per view, the compress CLI's times, bytes, ratio and
+     PSNR, and render ms per view printed;
+ 19. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
      status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
@@ -87,6 +102,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -100,17 +117,22 @@ import torch
 import torch.nn.functional as F
 
 from c3dgs_tpu_torch import kernels
-from c3dgs_tpu_torch.compress import pipeline
+from c3dgs_tpu_torch.cli import compress as cli_compress
+from c3dgs_tpu_torch.cli import metrics as cli_metrics
+from c3dgs_tpu_torch.cli import render as cli_render
+from c3dgs_tpu_torch.cli import train as cli_train
+from c3dgs_tpu_torch.compress import importance, pipeline
 from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
+from c3dgs_tpu_torch.data import cameras, colmap
 from c3dgs_tpu_torch.eval import metrics
-from c3dgs_tpu_torch.models import gaussians, io_npz
+from c3dgs_tpu_torch.models import gaussians, io_npz, io_ply
 from c3dgs_tpu_torch.ops import losses, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
-from c3dgs_tpu_torch.tools import dma_probe, scenes
+from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
 from c3dgs_tpu_torch.train import finetune, trainer
 
 # H100 SXM peaks (NVIDIA data sheet)
@@ -1565,6 +1587,248 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     return total
 
 
+# ------------------------------------------------------- from disk
+CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+
+
+class Recorder:
+    """Wraps module functions for one phase: counts each one's calls, keeps
+    their host-clock spans (entry and exit, after a device sync where asked)
+    and, for render_full, sums the renders each call took; put back by
+    restore()."""
+
+    def __init__(self):
+        self.spans, self.outputs, self.renders, self._undo = {}, {}, 0, []
+
+    def wrap(self, owner, name, sync=False, keep=False):
+        real = getattr(owner, name)
+        spans = self.spans.setdefault(name, [])
+        outputs = self.outputs.setdefault(name, [])
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spans.append((t0, time.perf_counter()))
+            if keep:
+                outputs.append(out)
+            if name == "render_full":
+                self.renders += out["renders"]
+            return out
+
+        setattr(owner, name, wrapped)
+        self._undo.append((owner, name, real))
+
+    def calls(self, name):
+        return len(self.spans.get(name, []))
+
+    def restore(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+def launches():
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in kernels.REGISTRY.values()}
+
+
+def phase_cli(scene, n_views=24, epochs=8, finetune_steps=12, width=1920, height=1080):
+    """The user path from a dataset on disk through the port's CLIs, at the
+    bench frame: a COLMAP folder of the bench scene's points and K1 renders
+    (tools/datasets.py) -> cli.train -> cli.compress -> cli.render ->
+    cli.metrics, each CLI's kernel launches held to the calls that make
+    them. Training passes --opacity_reset_interval 30000: with --epochs 8
+    and the default iterations, train.py's schedule resets opacity after
+    every epoch and arms its 20 px screen-size prune at epoch 2, which cut
+    the kNN-initialized bench scene to 17,451 near-transparent rows; at
+    30000 neither fires in 8 epochs, and densify (epochs 2 and 3) works on
+    a scene that keeps its splats. tests/test_torch_cli.py holds the reset
+    and the prune to train.py's on a small folder. Returns the summed
+    launches."""
+    log(f"== phase 18: from disk through the CLIs ({n_views} views at {width}x{height}, train {epochs} epochs, compress "
+        f"with {finetune_steps} finetune steps, render, metrics)")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    ds, out = str(CLI_DIR / "dataset"), str(CLI_DIR / "model")
+    views = [orbit_extrinsic(float(y)) for y in np.linspace(-0.35, 0.35, n_views)]
+    t0 = time.perf_counter()
+    names = datasets.write_colmap_dataset(ds, scene, views, width, height, 1.2, 1.2, device=DEVICE)
+    log(f"  dataset write {time.perf_counter() - t0:.3f} s: {len(names)} PNGs, points3D.bin of {scene.capacity} "
+        f"points with their DC colors, one PINHOLE camera")
+    total = {k.name: 0 for k in kernels.REGISTRY.values()}
+
+    # -- train
+    rec = Recorder()
+    rec.wrap(cli_train, "Scene", sync=True)
+    rec.wrap(colmap, "read_points3D_binary")
+    rec.wrap(cli_train.trainer, "train_step", keep=True)
+    rec.wrap(cameras.Camera, "load_image")
+    rec.wrap(cli_train.metrics, "render_full", sync=True)
+    kernels.reset_counts()
+    try:
+        random.seed(0)
+        state = cli_train.main(["-s", ds, "-m", out, "-r", "1", "--eval", "--epochs", str(epochs),
+                                "--eval_every", "4", "--opacity_reset_interval", "30000", "--data_device", DEVICE])
+    finally:
+        rec.restore()
+    got = launches()
+    entries = [json.loads(line) for line in open(Path(out) / "train_log.jsonl")]
+    steps = rec.calls("train_step")
+    (s0, s1), = rec.spans["Scene"]
+    (p0, p1), = rec.spans["read_points3D_binary"]
+    log(f"  Scene load (COLMAP read, kNN init at 4x capacity) {s1 - s0:.3f} s; of it the numpy points3D.bin parse "
+        f"of {scene.capacity} points {p1 - p0:.3f} s")
+    for e in entries:
+        log(f"  {json.dumps(e)}")
+    n_test = 3
+    eval_views = rec.calls("render_full")
+    assert len(entries) == epochs and all(math.isfinite(e["ema_loss"]) for e in entries), entries
+    assert entries[-1]["it"] == steps and eval_views == n_test * sum("test_psnr" in e for e in entries), \
+        (steps, eval_views)
+    assert got["tiles_packed_bwd"] == steps and got["tiles_packed_fwd"] == steps + rec.renders, (got, steps, rec.renders)
+    log(f"  kernel launches {got}: K2 = {steps} steps, K1 = {steps} steps + {rec.renders} eval renders "
+        f"({eval_views} views)")
+    for k in total:
+        total[k] += got[k]
+    actives = [e["active"] for e in entries]
+    assert len(set(actives[1:4])) > 1, f"active did not change at a densify epoch: {actives}"
+    log(f"  ema_loss {entries[0]['ema_loss']} -> {entries[-1]['ema_loss']}; active {actives}")
+    assert entries[-1]["ema_loss"] < entries[0]["ema_loss"], "the training loss did not fall"
+    assert actives[-1] >= scene.capacity // 2, f"training kept {actives[-1]} of {scene.capacity} splats"
+    last = entries[-1]["it"] - entries[-2]["it"]
+    ovf = [(int(m["overflow"]), int(m["grad_overflow"])) for _, m in rec.outputs["train_step"]]
+    log(f"  (overflow, grad_overflow) per step: {ovf}")
+    assert all(o == (0, 0) for o in ovf[-last:]), f"overflow in the last epoch's {last} steps"
+    # per step: the gap from one step's entry to the next one's within an
+    # epoch (image decode, the step, its metric reads); decode and the
+    # reads, which wait for the device, separately
+    first_of_epoch = {e["it"] for e in entries}  # 0-based index of each later epoch's first step
+    starts = [a for a, _ in rec.spans["train_step"]]
+    ends = [b for _, b in rec.spans["train_step"]]
+    decodes = rec.spans["load_image"]  # the steps' images and, between epochs, the eval's
+
+    def decode_before(t):  # ms of the image decode that ended last before t
+        a, b = max((span for span in decodes if span[1] <= t), key=lambda span: span[1])
+        return (b - a) * 1e3
+
+    step_ms, enqueue_ms, read_ms, decode_ms = [], [], [], []
+    for i in range(1, steps - 1):
+        if i + 1 in first_of_epoch:  # the next step is in the next epoch
+            continue
+        step_ms.append((starts[i + 1] - starts[i]) * 1e3)
+        enqueue_ms.append((ends[i] - starts[i]) * 1e3)
+        decode_ms.append(decode_before(starts[i + 1]))
+        read_ms.append((starts[i + 1] - ends[i]) * 1e3 - decode_ms[-1])
+    epoch_s = [round(b - a, 1) for a, b in zip([0.0] + [e["seconds"] for e in entries[:-1]], [e["seconds"] for e in entries])]
+    ev_ms = [(b - a) * 1e3 for a, b in rec.spans["render_full"]]
+    log(f"  s per epoch (train_log.jsonl): {epoch_s}")
+    log(f"  ms per step, host clock, steps 2+ within an epoch: {[round(m, 1) for m in step_ms]}; median "
+        f"{statistics.median(step_ms):.3f}; of it the train_step call {statistics.median(enqueue_ms):.3f}, the "
+        f"image decode {statistics.median(decode_ms):.3f}, the metric reads after it {statistics.median(read_ms):.3f}")
+    log(f"  --eval_every ms per view (render_full, synced): {[round(m, 1) for m in ev_ms]}; median "
+        f"{statistics.median(ev_ms):.3f}")
+    ply = Path(out) / "point_cloud" / f"iteration_{steps}" / "point_cloud.ply"
+    loaded = io_ply.load_gaussians_ply(str(ply), device=DEVICE)
+    final = state.scene.compact()
+    check_close("the saved .ply's xyz against the final state's active rows", loaded.xyz, final.xyz, 0.0)
+    check_close("its opacity logits", loaded.opacity, final.opacity, 0.0)
+    assert loaded.capacity == int(state.scene.num_active), (loaded.capacity, int(state.scene.num_active))
+    with torch.no_grad():
+        check_close("its features", loaded.get_features(), final.get_features(), 0.0)
+        check_close("its scales", loaded.get_scaling(), final.get_scaling(), 1e-6, 1e-5)
+    log(f"  {ply.name}: {ply.stat().st_size} B, {loaded.capacity} rows; last epoch {last} steps")
+
+    # -- compress
+    rec = Recorder()
+    rec.wrap(importance, "_importance_step")
+    rec.wrap(finetune.trainer, "train_step")
+    rec.wrap(cli_compress.metrics, "render_full")
+    kernels.reset_counts()
+    try:
+        compressed = cli_compress.main(["-m", out, "--finetune_iterations", str(finetune_steps)])
+    finally:
+        rec.restore()
+    got = launches()
+    eval_renders = rec.renders
+    vq = Path(out) / "vq"
+    results = json.load(open(vq / "results.json"))
+    times = json.load(open(vq / "times.json"))
+    sens, ft = rec.calls("_importance_step"), rec.calls("train_step")
+    log(f"  times.json {json.dumps(times)}")
+    log(f"  results.json {json.dumps(results)}")
+    assert ft == finetune_steps and sens >= n_test, (ft, sens)
+    assert got["tiles_packed_bwd"] == sens + ft and got["tiles_packed_fwd"] == sens + ft + 1 + eval_renders, \
+        (got, sens, ft, eval_renders)
+    for k in ("psnr", "ssim", "uncompressed_psnr", "psnr_drop", "compression_ratio"):
+        assert math.isfinite(results[k]), (k, results)
+    assert all(math.isfinite(v) for v in times.values()), times
+    log(f"  kernel launches {got}: K2 = {sens} sensitivity renders + {ft} finetune steps, K1 = those + the "
+        f"finetune's probe + {eval_renders} eval renders")
+    log(f"  npz {results['size_bytes']} B against the trained .ply's {results['ply_size_bytes']} B: ratio "
+        f"{results['compression_ratio']:.3f}; PSNR {results['psnr']:.4f} (uncompressed {results['uncompressed_psnr']:.4f}, "
+        f"drop {results['psnr_drop']:.4f})")
+    for k in total:
+        total[k] += got[k]
+
+    # -- render, then metrics
+    rec = Recorder()
+    rec.wrap(cli_render.metrics, "render_full", sync=True)
+    kernels.reset_counts()
+    try:
+        served = cli_render.main(["-m", out])
+    finally:
+        rec.restore()
+    got = launches()
+    n_views = sum(r["num_views"] for r in served.values())
+    renders = sum(r["num_renders"] for r in served.values())
+    view_ms = [(b - a) * 1e3 for a, b in rec.spans["render_full"]]
+    assert n_views == len(names) and got["tiles_packed_fwd"] == renders and got["tiles_packed_bwd"] == 0, (got, served)
+    for split in served:
+        dump = Path(out) / split / f"ours_{steps}"
+        pngs = sorted(p.name for p in (dump / "renders").iterdir())
+        assert pngs == sorted(p.name for p in (dump / "gt").iterdir()) and len(pngs) == served[split]["num_views"]
+    log(f"  render CLI: {n_views} views, {renders} renders, K1 launches {got['tiles_packed_fwd']}; ms per view "
+        f"(render_full, synced) median {statistics.median(view_ms):.3f}, all {[round(m, 1) for m in view_ms]}")
+    for k in total:
+        total[k] += got[k]
+    cli_metrics.main(["-m", out, "--data_device", DEVICE])
+    scored = json.load(open(Path(out) / "results.json"))
+    log(f"  metrics CLI results.json {json.dumps(scored)}")
+    for split in served:
+        assert math.isfinite(scored[f"{split}/ours_{steps}"]["PSNR"]), scored
+    assert json.load(open(Path(out) / "per_view.json")), "per_view.json is empty"
+
+    # -- the npz served as tests/test_e2e.py::test_compress_cli_roundtrip does
+    npz = io_npz.load_npz(vq / "point_cloud.npz", override_quantization=True, device=DEVICE)
+    test_cams = cli_render.Scene(source_path=ds, model_path="", scene=npz, resolution=1, eval_split=True,
+                                 shuffle=False, device=DEVICE).get_test_cameras()
+    served_npz = metrics.render_and_eval(npz, test_cams, device=DEVICE)
+    log(f"  the npz loaded from disk against the test photos: PSNR {served_npz['psnr']:.4f} (compress CLI "
+        f"{results['psnr']:.4f})")
+    # the npz from disk against the scene the compress CLI returned, pixel by
+    # pixel: they differ by the load's requantization only (observers
+    # re-pinned to the dequantized ranges), held to the bars of phase 17's
+    # round trip (51.8-54.7 dB, max|diff| <= 0.0945 there). A view's mean
+    # pixel is ~0.5, so an empty or transparent scene from disk, which
+    # renders the black background, scores ~6 dB.
+    assert abs(served_npz["psnr"] - results["psnr"]) < 0.05, (served_npz["psnr"], results["psnr"])
+    assert npz.capacity == compressed.capacity, (npz.capacity, compressed.capacity)
+    policy, diffs = CapacityPolicy(), []
+    for cam in test_cams:
+        settings = settings_from_intrinsic(cam.intrinsic, inference=True)
+        a = metrics.render_full(npz, cam.extrinsic_vector, settings, np.zeros(3), policy, device=DEVICE)
+        b = metrics.render_full(compressed, cam.extrinsic_vector, settings, np.zeros(3), policy, device=DEVICE)
+        assert int(a["overflow"]) == 0 and bool(torch.isfinite(a["render"]).all())
+        diffs.append((float((a["render"] - b["render"]).abs().max()), float(losses.psnr(a["render"], b["render"])[0, 0]),
+                      float(b["render"].mean())))
+    log(f"  the npz from disk vs the compress CLI's scene in memory, per test view: max|diff| "
+        f"{[round(d, 6) for d, _, _ in diffs]}; PSNR {[round(p, 3) for _, p, _ in diffs]}; mean pixel "
+        f"{[round(m, 4) for _, _, m in diffs]}")
+    assert all(d <= 0.1 and p >= 50.0 for d, p, _ in diffs), diffs
+    log(f"  card: {smi('name,power.limit')}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1602,6 +1866,9 @@ def main() -> int:
     compress_launches = phase_compress(scene, cams, serve_ms)
     k1["launches"] += compress_launches[k1["name"]]  # sensitivity, finetune and serving the npz
     k2["launches"] += compress_launches[k2["name"]]  # sensitivity and finetune
+    cli_launches = phase_cli(scene)
+    k1["launches"] += cli_launches[k1["name"]]  # the CLIs' steps, evals, sensitivity, finetune, renders
+    k2["launches"] += cli_launches[k2["name"]]  # the CLIs' steps, sensitivity and finetune
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
     print(card, flush=True)

@@ -29,6 +29,7 @@ from c3dgs_tpu_torch.render.binning import bin_gaussians
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from test_torch_gpu import EV, SCENES, make_scene, render_grads
 from test_torch_render import _j, _t, k1_args, staged
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 GRAD_TOL = 5e-4  # normalized, tests/test_render.py:150 (exact mode)
 FAST_TOL = 5e-2  # the same test's fast_grad class

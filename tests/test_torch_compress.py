@@ -58,6 +58,7 @@ from c3dgs_tpu_torch.render.types import RasterSettings
 from c3dgs_tpu_torch.train import finetune as tfinetune
 from c3dgs_tpu_torch.train import trainer
 from test_torch_serve import carry_over
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_render.py:113
 GRAD_TOL = 5e-4  # normalized, exact mode, tests/test_render.py:150

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from c3dgs_tpu_torch.tools import dma_probe as tprobe
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "dma_probe.py"
 

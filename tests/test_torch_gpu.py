@@ -828,3 +828,41 @@ def test_extract_rot_scale_on_card_past_one_eigh_batch():
     cov = quat.build_covariance(s, q)
     r, sc = quat.extract_rot_scale(cov.cuda())
     torch.testing.assert_close(quat.build_covariance(sc, r).cpu(), cov, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_cli_on_card_matches_cpu(tmp_path):
+    """The train CLI on a 32-px folder from tools/datasets.py, 1 epoch with
+    --data_device cuda and with --data_device cpu under one seed of
+    Python's `random`: the same steps and active rows, ema_loss at the
+    train bar (rtol 1e-5), one K1 and one K2 launch a step, and the saved
+    .ply at tests/ply_bars.py's bar: every entry within the steps times
+    its field's learning rate, at most 1% of them beyond 1e-5."""
+    import json
+    import random
+
+    from ply_bars import assert_trained_plys_close
+
+    from c3dgs_tpu_torch.cli import train as train_cli
+    from c3dgs_tpu_torch.models import io_ply
+    from c3dgs_tpu_torch.tools import datasets
+
+    _need_card()
+    ds = str(tmp_path / "ds")
+    datasets.write_blender_dataset(ds, res=32, num_train=12, num_test=2, device="cpu")
+    logs, plys = {}, {}
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / dev)
+        kernels.reset_counts()
+        random.seed(0)
+        train_cli.main(["-s", ds, "-m", out, "--epochs", "1", "--data_device", dev])
+        torch.cuda.synchronize()
+        logs[dev] = [json.loads(line) for line in open(f"{out}/train_log.jsonl")]
+        steps = logs[dev][-1]["it"]
+        plys[dev] = io_ply.read_vertices(f"{out}/point_cloud/iteration_{steps}/point_cloud.ply")
+        launches = (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches)
+        assert launches == ((steps, steps) if dev == "cuda" else (0, 0)), (dev, launches)
+    (a,), (b,) = logs["cuda"], logs["cpu"]
+    assert (a["it"], a["active"]) == (b["it"], b["active"]) == (2, 400)
+    np.testing.assert_allclose(a["ema_loss"], b["ema_loss"], rtol=1e-5)
+    assert_trained_plys_close(plys["cuda"], plys["cpu"], steps=2)

@@ -1,6 +1,6 @@
-"""The port's npz container (c3dgs_tpu_torch.models.io_npz) and its numpy
-helpers against c3dgs_tpu on the CPU, and ports of tests/test_model_io.py's
-npz tests.
+"""The port's npz container (c3dgs_tpu_torch.models.io_npz), its PLY codec
+(models/io_ply.py) and their numpy helpers against c3dgs_tpu on the CPU,
+and ports of tests/test_model_io.py's npz and ply tests.
 
 The file format is the contract: a file either package writes loads in the
 other.
@@ -11,7 +11,11 @@ other.
   (tests/test_render.py:113), and loads to equal leaves;
 - a port-written file loaded by JAX and by the port gives equal arrays, key
   by key; the file's arrays equal those JAX writes for the same scene;
-- quantize_int8 / dequantize_int8 and the Morton order equal JAX's exactly.
+- quantize_int8 / dequantize_int8 and the Morton order equal JAX's exactly;
+- PLY: the round trip in the port at atol 1e-4 (tests/test_model_io.py);
+  a JAX-written .ply loaded by the port and a port-written one loaded by
+  JAX give JAX's leaves at atol 1e-6, and both packages write the same
+  header and the same vertex bytes for one scene.
 """
 import math
 
@@ -22,17 +26,20 @@ import torch
 
 from c3dgs_tpu.models import gaussians as jgauss
 from c3dgs_tpu.models import io_npz as jio
+from c3dgs_tpu.models import io_ply as jply
 from c3dgs_tpu.ops import morton as jmorton
 from c3dgs_tpu.ops import quantize as jquant
 from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu.train import trainer as jtrainer
 from c3dgs_tpu_torch.models import gaussians as tgauss
 from c3dgs_tpu_torch.models import io_npz as tio
+from c3dgs_tpu_torch.models import io_ply as tply
 from c3dgs_tpu_torch.ops import morton as tmorton
 from c3dgs_tpu_torch.ops import quantize as tquant
 from c3dgs_tpu_torch.render.types import RasterSettings
 from c3dgs_tpu_torch.train import trainer
 from test_torch_serve import carry_over
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)
 CPU = dict(device="cpu")
@@ -256,3 +263,67 @@ def test_npz_reference_semantics_golden(tmp_path):
                                    atol=1.5 * qp[name][0], err_msg=name)
     np.testing.assert_array_equal(_np(scene2.feature_indices), fid)
     assert set(np.load(path2).files) == set(d.keys())
+
+
+# ------------------------------------------------------------------- ply
+PLY_LEAVES = ("xyz", "opacity", "scaling_factor", "active", "features_dc", "features_rest", "scaling", "rotation")
+
+
+def test_ply_roundtrip(tmp_path):
+    """tests/test_model_io.py::test_ply_roundtrip in the port."""
+    scene = carry_over(jax_scene(80, 80, quantization=False))
+    p = str(tmp_path / "model.ply")
+    tply.save_gaussians_ply(scene, p)
+    loaded = tply.load_gaussians_ply(p, quantization=False, **CPU)
+    assert loaded.capacity == 80 and loaded.active_sh_degree == 3
+    assert_scenes_equal(scene, loaded, atol=1e-4)
+
+
+def test_ply_rgb_pointcloud_init_matches_jax(tmp_path):
+    """tests/test_model_io.py::test_ply_rgb_pointcloud_init in both
+    packages: a bare RGB cloud initializes the same scene, padded to a
+    capacity with rows of rotation (1, 0, 0, 0)."""
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(50, 3)).astype(np.float32)
+    cols = (rng.random(size=(50, 3)) * 255).astype(np.uint8)
+    p = str(tmp_path / "cloud.ply")
+    tply.write_vertices(p, {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2],
+                            "red": cols[:, 0], "green": cols[:, 1], "blue": cols[:, 2]})
+    ts = tply.load_gaussians_ply(p, capacity=64, **CPU)
+    js = jply.load_gaussians_ply(p, capacity=64)
+    assert ts.capacity == 64 and ts.active_sh_degree == 0
+    for name in PLY_LEAVES:
+        np.testing.assert_allclose(_np(getattr(ts, name)), np.asarray(getattr(js, name)), atol=1e-6, err_msg=name)
+    cloud = tply.read_point_cloud(p)
+    np.testing.assert_array_equal(cloud.points, pts)
+    np.testing.assert_array_equal(cloud.colors, cols.astype(np.float32) / 255.0)
+
+
+def _header(path):
+    data = open(path, "rb").read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    return data[:end], data[end:]
+
+
+@pytest.mark.parametrize("quantization", [False, True])
+def test_ply_files_cross_between_packages(tmp_path, quantization):
+    """A JAX-written .ply loads in the port and a port-written one in JAX
+    to JAX's leaves (capacity padding included); both write identical
+    headers and vertex bytes for the same scene."""
+    js = jax_scene(100, 128, quantization=quantization)
+    ts = carry_over(js)
+    jp, tp = str(tmp_path / "jax.ply"), str(tmp_path / "port.ply")
+    jply.save_gaussians_ply(js, jp)
+    tply.save_gaussians_ply(ts, tp)
+    (jh, jb), (th, tb) = _header(jp), _header(tp)
+    assert th == jh
+    np.testing.assert_allclose(np.frombuffer(tb, np.float32), np.frombuffer(jb, np.float32), atol=1e-6)
+    ref = jply.load_gaussians_ply(jp, quantization=quantization, capacity=128)
+    loads = (tply.load_gaussians_ply(jp, quantization=quantization, capacity=128, **CPU),  # JAX's file, port
+             jply.load_gaussians_ply(tp, quantization=quantization, capacity=128))  # port's file, JAX
+    for got in loads:
+        assert got.capacity == 128 and got.active_sh_degree == ref.active_sh_degree == 3
+        for name in PLY_LEAVES:
+            np.testing.assert_allclose(_np(getattr(got, name)), np.asarray(getattr(ref, name)), atol=1e-6,
+                                       err_msg=name)
+    np.testing.assert_array_equal(_np(loads[0].rotation)[100:], np.tile([1.0, 0, 0, 0], (28, 1)))

@@ -20,6 +20,7 @@ from c3dgs_tpu_torch.ops import misc as tmisc
 from c3dgs_tpu_torch.ops import quantize as tquant
 from c3dgs_tpu_torch.ops import quat as tquat
 from c3dgs_tpu_torch.ops import sh as tsh
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 ATOL = 1e-6
 

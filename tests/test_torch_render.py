@@ -29,6 +29,7 @@ from c3dgs_tpu_torch.render.preprocess import Preprocessed as TPrep
 from c3dgs_tpu_torch.render.preprocess import preprocess as tpreprocess
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from test_torch_gpu import EV, SCENES, make_scene
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # tests/test_render.py:113
 K1_TOL = dict(atol=2e-5, rtol=1e-4)

@@ -36,6 +36,7 @@ from c3dgs_tpu_torch.render.types import settings_from_intrinsic
 from c3dgs_tpu_torch.tools import dma_probe as tprobe
 from c3dgs_tpu_torch.train import finetune as tfinetune
 from c3dgs_tpu_torch.train import trainer as ttrainer
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)
 PKG = Path(__file__).resolve().parents[1] / "c3dgs_tpu_torch"
@@ -242,7 +243,9 @@ def test_package_imports_no_jax():
     code = (
         "import sys, c3dgs_tpu_torch, c3dgs_tpu_torch.eval.metrics, c3dgs_tpu_torch.render.rasterizer, "
         "c3dgs_tpu_torch.tools.dma_probe, c3dgs_tpu_torch.compress.pipeline, c3dgs_tpu_torch.train.finetune, "
-        "c3dgs_tpu_torch.models.io_npz; "
+        "c3dgs_tpu_torch.models.io_npz, c3dgs_tpu_torch.models.io_ply, c3dgs_tpu_torch.data.scene, "
+        "c3dgs_tpu_torch.train.checkpoint, c3dgs_tpu_torch.tools.datasets, c3dgs_tpu_torch.cli.train, "
+        "c3dgs_tpu_torch.cli.compress, c3dgs_tpu_torch.cli.render, c3dgs_tpu_torch.cli.metrics; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax', 'c3dgs_tpu.')) "
         "or m == 'c3dgs_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )

@@ -33,6 +33,7 @@ from test_torch_backward import FAST_TOL, GRAD_TOL, NAMES, assert_normalized, co
 from test_torch_gpu import SCENES, k1_inputs, k3_inputs, make_scene
 from test_torch_render import IMG_TOL, _j, _t, jax_prep, render_both
 from test_torch_train import train_step_parity
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 _jit_fwd = jax.jit(jrast._blend_forward_call, static_argnums=(0, 1))
 _jit_bwd = jax.jit(jrast._blend_backward_call, static_argnums=(0, 1, 2, 3, 4))

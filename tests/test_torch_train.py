@@ -38,6 +38,7 @@ from c3dgs_tpu_torch.train import densify as D
 from c3dgs_tpu_torch.train import trainer
 from test_torch_serve import carry_over
 from test_train import toy_scene as jax_toy_scene
+import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
 KW = dict(width=32, height=32, tanfovx=math.tan(0.5), tanfovy=math.tan(0.5), sh_degree=0)
 SET = RasterSettings(**KW)
