@@ -27,6 +27,7 @@ from ..config import (
 )
 from ..data import Scene
 from ..device import resolve_device
+from ..eval import lpips as lpips_mod
 from ..eval import metrics
 from ..models import io_npz
 from ..train import checkpoint, finetune
@@ -88,12 +89,18 @@ def run_vq(model_p, opt_p, pipe_p, comp_p):
 
     t0 = time.time()
     eval_cams = scene.get_test_cameras() or scene.get_train_cameras()[:8]
-    print(f"LPIPS skipped: {metrics.LPIPS_UNAVAILABLE_REASON}")
-    results = metrics.render_and_eval(compressed, eval_cams, npz_path=npz_path, device=dev)
+    # LPIPS when converted weights exist (the reference reports
+    # PSNR/SSIM/LPIPS, compress.py:150-163; eval/lpips.py)
+    if lpips_mod.available():
+        lpips_fn = lpips_mod.LPIPS(device=dev)
+    else:
+        lpips_fn = None
+        print(lpips_mod.unavailable_hint())
+    results = metrics.render_and_eval(compressed, eval_cams, npz_path=npz_path, lpips_fn=lpips_fn, device=dev)
     # the uncompressed baseline on the same split: the compression ratio
     # (against the trained .ply) and the PSNR drop, the reference's
     # headline numbers (>= 26-31x at <= 0.5 dB)
-    base = metrics.render_and_eval(gaussians, eval_cams, device=dev)
+    base = metrics.render_and_eval(gaussians, eval_cams, lpips_fn=lpips_fn, device=dev)
     del results["num_renders"]  # the port's count; compress.py writes JAX's keys
     results["uncompressed_psnr"] = base["psnr"]
     if results.get("psnr") is not None and base.get("psnr") is not None:

@@ -4,10 +4,10 @@ renders/ + gt/ PNG pairs again with SSIM / PSNR.
     python -m c3dgs_tpu_torch.cli.metrics -m <model dir> [<model dir> ...]
 
 Parity: metrics.py evaluate (:38-117) -> results.json / per_view.json in
-each model dir. LPIPS needs pretrained weights that are not in the repo:
-it is written as null with the reason, as the JAX CLI does without its
-converted weights. --data_device (default cuda) picks the device the
-scores are computed on.
+each model dir. LPIPS is computed when converted weights are at
+eval/lpips.py's default path, and written as null with the reason
+otherwise, as the JAX CLI does. --data_device (default cuda) picks the
+device the scores are computed on.
 """
 import argparse
 import json
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..eval.metrics import LPIPS_UNAVAILABLE_REASON
+from ..eval import lpips as lpips_mod
 from ..ops import losses as L
 
 
@@ -26,7 +26,11 @@ def evaluate(model_paths, lpips_net="vgg", device=None):
     from PIL import Image
 
     dev = resolve_device(device)
-    print(f"LPIPS ({lpips_net}) skipped: {LPIPS_UNAVAILABLE_REASON}")
+    if lpips_mod.available(net_type=lpips_net):
+        lpips_fn = lpips_mod.LPIPS(net_type=lpips_net, device=dev)
+    else:
+        lpips_fn = None
+        print(lpips_mod.unavailable_hint(lpips_net))
 
     def read(p):
         arr = np.asarray(Image.open(p)).astype(np.float32) / 255.0
@@ -40,7 +44,7 @@ def evaluate(model_paths, lpips_net="vgg", device=None):
             gt_dir = method_dir / "gt"
             if not renders_dir.exists():
                 continue
-            ssims, psnrs, per_view = [], [], {}
+            ssims, psnrs, lpipss, per_view = [], [], [], {}
             for img_path in sorted(renders_dir.iterdir()):
                 gt_path = gt_dir / img_path.name
                 if not gt_path.exists():
@@ -51,13 +55,18 @@ def evaluate(model_paths, lpips_net="vgg", device=None):
                 psnrs.append(p)
                 ssims.append(s)
                 per_view[img_path.name] = {"psnr": p, "ssim": s}
+                if lpips_fn is not None:
+                    lp = float(lpips_fn(render, gt))
+                    lpipss.append(lp)
+                    per_view[img_path.name]["lpips"] = lp
             name = str(method_dir.relative_to(model_path))
             result = {
                 "SSIM": float(np.mean(ssims)) if ssims else None,
                 "PSNR": float(np.mean(psnrs)) if psnrs else None,
-                "LPIPS": None,
-                "LPIPS_reason": LPIPS_UNAVAILABLE_REASON,
+                "LPIPS": float(np.mean(lpipss)) if lpipss else None,
             }
+            if lpips_fn is None:
+                result["LPIPS_reason"] = lpips_mod.UNAVAILABLE_REASON
             full[name] = result
             print(f"  {name}: {result}")
             with open(os.path.join(model_path, "per_view.json"), "w") as f:
@@ -73,7 +82,7 @@ def main(argv=None):
         "--lpips_net",
         choices=["vgg", "alex"],
         default="vgg",
-        help="LPIPS backbone (reference networks.py:12-20); accepted as the JAX CLI does, LPIPS is not computed",
+        help="LPIPS backbone (reference networks.py:12-20; used when converted weights are present)",
     )
     parser.add_argument("--data_device", type=str, default="cuda")
     args = parser.parse_args(argv)

@@ -1,8 +1,8 @@
 """Evaluation: render views through the capacity policy and score them with
-PSNR / SSIM (port of c3dgs_tpu/eval/metrics.py: render_full,
-render_and_eval, write_results). LPIPS needs pretrained weights that are
-not in the repo and is reported as null with the reason, as the JAX
-package does.
+PSNR / SSIM, and LPIPS through a given `lpips_fn` (port of
+c3dgs_tpu/eval/metrics.py: render_full, render_and_eval, write_results).
+Without one LPIPS is reported as null with the reason, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -18,8 +18,7 @@ from ..ops import losses as L
 from ..render.capacity import CapacityPolicy
 from ..render.types import settings_from_intrinsic
 from ..train import trainer
-
-LPIPS_UNAVAILABLE_REASON = "weights unavailable (zero egress)"
+from .lpips import UNAVAILABLE_REASON as LPIPS_UNAVAILABLE_REASON
 
 
 @torch.no_grad()

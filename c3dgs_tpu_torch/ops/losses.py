@@ -12,8 +12,15 @@ import torch
 import torch.nn.functional as F
 
 
+def abs_like_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative at 0 is 1, as jnp.abs's is; torch.abs's is 0.
+    Where a residual is exactly 0 (a pose at its anchor, a pixel equal to
+    its target) the two conventions give different gradients."""
+    return torch.where(x >= 0, x, -x)
+
+
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.abs(pred - target).mean()
+    return abs_like_jax(pred - target).mean()
 
 
 def l2_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
-"""Seeded numpy scenes that hold the packed kernels against their plain
-versions on the card: shared by tests/test_torch_gpu.py and chip_smoke.py.
+"""Seeded numpy inputs shared by tests/test_torch_gpu.py and chip_smoke.py:
+a scene that holds the packed kernels against their plain versions on the
+card, and random LPIPS weights that hold the card's LPIPS against the
+CPU's.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..eval.lpips import ALEX_CONVS, VGG_BLOCKS
 
 
 def long_tile_scene(n: int = 4000, seed: int = 11):
@@ -24,3 +28,22 @@ def long_tile_scene(n: int = 4000, seed: int = 11):
     opacity = np.select([row < -1.0, row < 1.0], [0.6, 0.05], 0.02) * rng.uniform(0.5, 1.5, n)
     colors = rng.random(size=(n, 3)).astype(np.float32)
     return means.astype(np.float32), scales, quats, opacity.astype(np.float32), colors
+
+
+def lpips_random_weights(net_type: str, rng: np.random.Generator) -> dict:
+    """Random LPIPS weights in the weights-file layout (conv{i}/kernel,
+    conv{i}/bias, lin{i}/kernel), drawn from `rng` as
+    tests/test_lpips.py's _random_weights (vgg) and _random_alex_weights
+    (alex) draw them: per conv its kernel N(0, 1) * 0.05 and its bias
+    N(0, 1) * 0.01, then per tap |N(0, 1)| heads."""
+    convs = [(cout, 3) for cout, n_convs in VGG_BLOCKS for _ in range(n_convs)] if net_type == "vgg" else \
+        [(cout, k) for cout, k, *_ in ALEX_CONVS]
+    taps = [cout for cout, _ in VGG_BLOCKS] if net_type == "vgg" else [cout for cout, *_ in ALEX_CONVS]
+    state, cin = {}, 3
+    for i, (cout, k) in enumerate(convs):
+        state[f"conv{i}/kernel"] = rng.normal(size=(cout, cin, k, k)).astype(np.float32) * 0.05
+        state[f"conv{i}/bias"] = rng.normal(size=(cout,)).astype(np.float32) * 0.01
+        cin = cout
+    for i, cout in enumerate(taps):
+        state[f"lin{i}/kernel"] = np.abs(rng.normal(size=(1, cout, 1, 1)).astype(np.float32))
+    return state

@@ -94,10 +94,12 @@ def adam_init(params: Dict[str, torch.Tensor]) -> AdamState:
 
 @torch.no_grad()
 def adam_update(state: AdamState, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-                schedules: dict) -> None:
-    """One Adam(b1 0.9, b2 0.999, eps 1e-15) step, in place:
+                schedules: dict, eps: float = ADAM_EPS) -> None:
+    """One Adam(b1 0.9, b2 0.999, eps) step, in place:
     param += -lr_k(step) * mu_hat / (sqrt(nu_hat) + eps), with the LR step
-    read before it is incremented (trainer.make_optimizer)."""
+    read before it is incremented (trainer.make_optimizer). The scene's
+    optimizer uses eps 1e-15 (gaussian_model.py:314); the pose optimizers
+    optax.adam's default 1e-8 (train/camera_opt.py, train/joint.py)."""
     count = state.count + 1
     # optax's bias corrections 1 - b**count in float32, with a float
     # exponent: torch's integer-exponent pow rounds differently at some
@@ -115,7 +117,7 @@ def adam_update(state: AdamState, params: Dict[str, torch.Tensor], grads: Dict[s
         # division optax performs
         mu_hat = mu / torch.full_like(mu, bc1)
         nu_hat = nu / torch.full_like(nu, bc2)
-        p.add_(-schedules[k](state.step) * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
+        p.add_(-schedules[k](state.step) * (mu_hat / (torch.sqrt(nu_hat) + eps)))
     state.count = count
     state.step += 1
 

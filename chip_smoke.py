@@ -93,13 +93,34 @@ Phases (any failed check raises, and the script exits non-zero):
      load s, s per epoch, ms per step (its image decode and its metric
      reads), eval ms per view, the compress CLI's times, bytes, ratio and
      PSNR, and render ms per view printed;
- 19. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
+ 19. poses, joint training and the small CLIs, each part's K1 and K2
+     launches, reset just before and read just after, equal to the calls
+     that make them: optimize_camera (150 Adam steps at lr 3e-3 from a
+     phase 4 orbit pose + tests/test_camera_opt.py:28's perturbation,
+     against the scene's own render at that pose) on the 300k scene and
+     on phase 17's codebook-indexed scene, held to test_pose_recovery's
+     bars (image error below 0.35x the start's, translation within 0.03)
+     with overflow 0 on every step, ms per step and the busy share;
+     cli.train_camera on phase 18's trained .ply and on its npz (2
+     cameras, 100 steps at the CLI's 1600x900: the pose-error lines and
+     PNGs); cli.train_no_splatting on phase 18's folder (10 epochs step
+     each camera once; --perturb_poses 0.005 --anchor_weight 0.5
+     --compress: the poses, each capacity bucket clipping at most once,
+     the .ply against the final state, the npz served), ms per joint
+     step; cli.run_indexed (12 finetune steps) and cli.npz2ply on phase
+     18's model; densify_initial on the folder's 300,000 points, and on a
+     20,000-point subset from one scene, card against CPU (kNN indices
+     equal, rows at 1e-6); LPIPS (VGG and AlexNet, seeded random weights)
+     at 1920x1080 card against CPU at rtol 1e-4, ms per call;
+ 20. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
      status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import random
@@ -119,12 +140,16 @@ import torch.nn.functional as F
 from c3dgs_tpu_torch import kernels
 from c3dgs_tpu_torch.cli import compress as cli_compress
 from c3dgs_tpu_torch.cli import metrics as cli_metrics
+from c3dgs_tpu_torch.cli import npz2ply as cli_npz2ply
 from c3dgs_tpu_torch.cli import render as cli_render
+from c3dgs_tpu_torch.cli import run_indexed as cli_run_indexed
 from c3dgs_tpu_torch.cli import train as cli_train
+from c3dgs_tpu_torch.cli import train_camera as cli_train_camera
+from c3dgs_tpu_torch.cli import train_no_splatting as cli_tns
 from c3dgs_tpu_torch.compress import importance, pipeline
 from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.data import cameras, colmap
-from c3dgs_tpu_torch.eval import metrics
+from c3dgs_tpu_torch.eval import lpips, metrics
 from c3dgs_tpu_torch.models import gaussians, io_npz, io_ply
 from c3dgs_tpu_torch.ops import losses, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
@@ -133,7 +158,7 @@ from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
-from c3dgs_tpu_torch.train import finetune, trainer
+from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
 # H100 SXM peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1432,7 +1457,8 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     CompressionParams; the finetune's depth is cut from 5,000 steps. The
     8 orbit views of phase 4 are the cameras, their uncompressed renders
     the images. Each stage runs with the kernel counts reset just before
-    and read just after; returns the summed launches."""
+    and read just after; returns the summed launches and the loaded npz's
+    (codebook-indexed) scene."""
     log(f"== phase 17: compress the 300k scene (to_compressed, finetune {finetune_steps} steps, save_npz, "
         "load_npz, render_and_eval)")
     comp = CompressionParams()
@@ -1584,7 +1610,7 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     log(f"  served view ms, uncompressed: {[round(m, 3) for m in base_ms]}; median {statistics.median(base_ms):.3f} "
         f"(phase 4: median {statistics.median(serve_ms):.3f})")
     log(f"  K1 and K2 launches over the phase: {total}")
-    return total
+    return total, loaded
 
 
 # ------------------------------------------------------- from disk
@@ -1828,6 +1854,300 @@ def phase_cli(scene, n_views=24, epochs=8, finetune_steps=12, width=1920, height
     log(f"  card: {smi('name,power.limit')}")
     return total
 
+# -------------------------------------------- poses, joint training, small CLIs
+POSE_DELTA = np.array([0.01, -0.01, 0.005, 0, 0.05, -0.04, 0.02], np.float32)  # tests/test_camera_opt.py:28
+POSE_ITERATIONS = 150  # test_pose_recovery's count and lr
+POSE_LR = 3e-3
+
+
+def counted(fn, expect, what):
+    """Run fn() with every kernel count reset just before and read just
+    after; raise unless K1's and K2's launches equal `expect`, a callable
+    of fn's result giving (K1, K2) from the calls that launch them.
+    Returns (fn's result, the launches)."""
+    kernels.reset_counts()
+    out = fn()
+    got = launches()
+    want = expect(out)
+    assert (got["tiles_packed_fwd"], got["tiles_packed_bwd"]) == want, (what, got, want)
+    log(f"  {what}: kernel launches {got} (K1, K2 expected {want})")
+    return out, got
+
+
+def recover_pose(name, scene, cam):
+    """optimize_camera from cam's pose + POSE_DELTA against the scene's own
+    K1 render at cam's pose, through buckets twice the probe's (the pose
+    moves the frame's instances); every step's overflow read. Returns the
+    launches."""
+    ev_true = np.asarray(cam.extrinsic_vector, np.float32)
+    base = settings_from_intrinsic(cam.intrinsic)
+    bg = torch.zeros(3, device=DEVICE)
+    with torch.no_grad():
+        probe = trainer.render_scene(scene, ev_true, CapacityPolicy().apply(base), bg, device=DEVICE)
+        settings = CapacityPolicy(initial=2 * int(probe["num_instances"]),
+                                  grad_initial=2 * int(probe["grad_total"])).apply(base)
+        gt = trainer.render_scene(scene, ev_true, settings, bg, device=DEVICE)["render"].clone()
+
+    def image_error(ev):
+        with torch.no_grad():
+            return float((trainer.render_scene(scene, ev, settings, bg, device=DEVICE)["render"] - gt).abs().mean())
+
+    ev0 = ev_true + POSE_DELTA
+    before = {k: v.clone() for k, v in scene.state_dict().items()}
+    events, hist = [], []
+    real = camera_opt.camera_step
+
+    def timed_step(*a, **kw):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a, **kw)
+        e.record()
+        events.append((s, e))
+        hist.append(out[2])  # each step's metrics, read after the run
+        return out
+
+    camera_opt.camera_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        (ev, loss), got = counted(
+            lambda: camera_opt.optimize_camera(scene, ev0, gt, settings, iterations=POSE_ITERATIONS, lr=POSE_LR,
+                                               device=DEVICE),
+            lambda _: (POSE_ITERATIONS, POSE_ITERATIONS), f"{name}: optimize_camera, {POSE_ITERATIONS} steps")
+    finally:
+        camera_opt.camera_step = real
+    wall_s = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    hist = [{k: float(v) if k == "loss" else int(v) for k, v in m.items()} for m in hist]
+    ev = ev.cpu().numpy()
+    e0, e1 = image_error(ev0), image_error(ev)
+    trans = float(np.abs(ev[4:] - ev_true[4:]).max())
+    log(f"  {name}: {scene.capacity} splats{' (codebook-indexed)' if scene.is_color_indexed else ''}, "
+        f"{settings.width}x{settings.height}, SH degree {scene.active_sh_degree}; instances at the true pose "
+        f"{int(probe['num_instances'])}, buckets {settings.instance_capacity} / {settings.grad_capacity}")
+    log(f"  losses every 25 steps: {[round(h['loss'], 6) for h in hist[::25]]}; final {loss:.6f}")
+    log(f"  mean |image - target|: start {e0:.6f}, recovered {e1:.6f} ({e1 / e0:.4f} of the start; bar 0.35)")
+    log(f"  pose error max: start {float(np.abs(ev0 - ev_true).max()):.4f}, recovered "
+        f"{float(np.abs(ev - ev_true).max()):.6f}; translation {trans:.6f} (bar 0.03)")
+    log(f"  ms per pose step (CUDA events): median "
+        f"{statistics.median(step_ms[1:]):.3f}, min {min(step_ms):.3f}, max {max(step_ms[1:]):.3f}; "
+        f"{POSE_ITERATIONS} steps in {wall_s:.3f} s of host clock")
+    assert all(h["overflow"] == 0 and h["grad_overflow"] == 0 for h in hist), f"{name}: overflow in a pose step"
+    assert all(math.isfinite(h["loss"]) for h in hist), f"{name}: non-finite pose loss"
+    assert e1 < 0.35 * e0, f"{name}: image error {e1} not below 0.35x the start's {e0}"
+    assert trans < 0.03, f"{name}: translation error {trans}"
+    assert all(p.grad is None for p in scene.parameters()), f"{name}: the frozen scene got a .grad"
+    assert all(torch.equal(before[k], v) for k, v in scene.state_dict().items()), f"{name}: the scene changed"
+    # the device's busy share of one pose step
+    ev_b = torch.as_tensor(ev0, device=DEVICE).clone()
+    state = trainer.adam_init({"ev": ev_b})
+    gt_d = gt.clone()
+    busy, rows = device_busy_ms(lambda: camera_opt.camera_step(scene, ev_b, state, gt_d, settings, bg, POSE_LR))
+    med = statistics.median(step_ms[1:])
+    log(f"  profiler: {busy:.4f} ms of kernel time in one pose step; busy share {100 * busy / med:.1f}% of the "
+        f"unprofiled median {med:.3f} ms" if rows else "  profiler: no device time recorded")
+    return got
+
+
+def written_ply_matches(ply, scene):
+    loaded = io_ply.load_gaussians_ply(str(ply), device=DEVICE)
+    final = scene.compact()
+    check_close(f"{ply.name}'s xyz against the scene's active rows", loaded.xyz, final.xyz, 0.0)
+    check_close("its opacity logits", loaded.opacity, final.opacity, 0.0)
+    with torch.no_grad():
+        check_close("its features", loaded.get_features(), final.get_features(), 0.0)
+        check_close("its scales", loaded.get_scaling(), final.get_scaling(), 1e-6, 1e-5)
+    assert loaded.capacity == final.capacity, (loaded.capacity, final.capacity)
+
+
+def quiet(fn):
+    """fn() with its standard output captured; returns (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def densify_check(points3d, subset=20_000):
+    """densify_initial on a COLMAP folder's points on the card (insertions,
+    capacity, seconds), and on an evenly strided subset on the card and on
+    the CPU: kNN indices equal, the rows at 1e-6."""
+    pts, rgb, _ = colmap.read_points3D_binary(str(points3d))
+    pts, cols = pts.astype(np.float32), rgb.astype(np.float32) / 255.0
+    cloud = gaussians.from_point_cloud(pts, cols, capacity=len(pts), quantization=False, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thick = densify_initial.densify_initial(cloud)
+    torch.cuda.synchronize()
+    log(f"  densify_initial on {len(pts)} points: +{int(thick.num_active) - len(pts)} splats, capacity "
+        f"{cloud.capacity} -> {thick.capacity}, {time.perf_counter() - t0:.3f} s")
+    step = max(len(pts) // subset, 1)
+    sub, sub_cols = pts[::step][:subset], cols[::step][:subset]
+    knn = {dev: densify_initial._knn_indices(sub, 3, device=dev) for dev in (DEVICE, "cpu")}
+    assert np.array_equal(knn[DEVICE], knn["cpu"]), f"kNN differs on {int((knn[DEVICE] != knn['cpu']).any(1).sum())} rows"
+    # one input scene for both devices: from_point_cloud's kNN scale init
+    # itself parts between them (its sq_i + sq_j - 2 x.y cancels)
+    base = gaussians.from_point_cloud(sub, sub_cols, capacity=len(sub), quantization=False, device="cpu")
+    outs = {dev: densify_initial.densify_initial(base.clone().to(dev)) for dev in (DEVICE, "cpu")}
+    assert torch.equal(outs[DEVICE].active.cpu(), outs["cpu"].active), "densify_initial's rows differ"
+    for k in ("xyz", "opacity", "scaling_factor", "features_dc", "scaling", "rotation"):
+        check_close(f"densify_initial on {len(sub)} points, card vs CPU: {k}", getattr(outs[DEVICE], k).detach().cpu(),
+                    getattr(outs["cpu"], k).detach(), 1e-6)
+    log(f"  {len(sub)}-point subset: kNN indices equal on the card and the CPU; "
+        f"+{int(outs['cpu'].num_active) - len(sub)} splats on both")
+
+
+def lpips_check(a, b):
+    """LPIPS (VGG and AlexNet, seeded random weights) of two images on the
+    card against the CPU at rtol 1e-4, and its ms per call."""
+    for net_type in ("vgg", "alex"):
+        path = NPZ_DIR / f"lpips_{net_type}_random.npz"
+        np.savez(path, **scenes.lpips_random_weights(net_type, np.random.default_rng(0)))
+        card_fn = lpips.LPIPS(str(path), net_type, device=DEVICE)
+        card = float(card_fn(a, b))
+        ref = float(lpips.LPIPS(str(path), net_type, device="cpu")(a.cpu(), b.cpu()))
+        ms = cuda_ms(lambda: card_fn(a, b), reps=5)
+        log(f"  LPIPS ({net_type}, random weights) at {a.shape[2]}x{a.shape[1]}: card {card:.8f}, CPU {ref:.8f}, "
+            f"relative difference {abs(card - ref) / ref:.3e} (rtol 1e-4); {statistics.median(ms):.3f} ms a call "
+            "(CUDA events, median of 5)")
+        assert math.isfinite(card) and ref > 0 and abs(card - ref) <= 1e-4 * ref, (net_type, card, ref)
+
+
+def phase_pose(scene, cams, compressed, width=1920, height=1080):
+    """The fork's pose paths at the bench frame: pose recovery on the 300k
+    scene and on phase 17's codebook-indexed scene, the pose and joint
+    CLIs on phase 18's folder, run_indexed and npz2ply on its model,
+    densify_initial on its 300,000 points, and LPIPS on the card against
+    the CPU. Each part's K1 and K2 launches are held to the calls that
+    make them. Returns the summed launches."""
+    from PIL import Image
+
+    log(f"== phase 19: poses, joint training and the small CLIs ({POSE_ITERATIONS} pose steps at lr {POSE_LR}; "
+        "phase 18's folder)")
+    total = {k.name: 0 for k in kernels.REGISTRY.values()}
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    cam = cams[2]
+    add(recover_pose(f"the 300k scene at {cam.image_name}", scene, cam))
+    add(recover_pose(f"phase 17's npz as loaded at {cam.image_name}", compressed, cam))
+
+    ds, model = CLI_DIR / "dataset", CLI_DIR / "model"
+    iteration = max(int(p.name.split("_")[-1]) for p in (model / "point_cloud").iterdir())
+    npz_model = CLI_DIR / "model_npz"
+    (npz_model / "point_cloud" / f"iteration_{iteration}").mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(model / "vq" / "point_cloud.npz", npz_model / "point_cloud" / f"iteration_{iteration}" /
+                    "point_cloud.npz")
+
+    # -- cli.train_camera against the trained .ply, then the npz
+    for what, m in (("the trained .ply", model), ("the compressed npz", npz_model)):
+        dump = CLI_DIR / f"pose_dump_{m.name}"
+        rec = Recorder()
+        rec.wrap(cli_train_camera.camera_opt, "camera_step")
+        rec.wrap(cli_train_camera.trainer, "render_scene")
+        try:
+            (results, text), got = counted(
+                lambda: quiet(lambda: cli_train_camera.main(
+                    ["-s", str(ds), "-m", str(m), "--num_cameras", "2", "--iterations", "100", "--dump_dir", str(dump),
+                     "--data_device", DEVICE])),
+                lambda _: (rec.calls("render_scene"), rec.calls("camera_step")), f"cli.train_camera on {what}")
+        finally:
+            rec.restore()
+        lines = [line for line in text.splitlines() if "pose error" in line]
+        for line in lines:
+            log(f"  {line}")
+        assert len(lines) == len(results) == 2 and rec.calls("camera_step") == 200, (lines, rec.calls("camera_step"))
+        assert all(math.isfinite(r["loss"]) for r in results), results
+        pngs = sorted(p.name for p in dump.iterdir())
+        assert pngs == sorted(f"{r['image_name']}_opt.png" for r in results), pngs
+        # train_camera.py has no resolution flag: its Scene takes the
+        # default ladder, which brings 1920 px wide photos in at 1600 px
+        size = cameras.resolve_resolution(width, height, -1)
+        assert Image.open(dump / pngs[0]).size == size
+        log(f"  {pngs} written at {size[0]}x{size[1]} (the CLI's default resolution ladder); steps {rec.calls('camera_step')}, renders {rec.calls('render_scene')}")
+        add(got)
+
+    # -- cli.train_no_splatting: 10 epochs step every camera once
+    joint_dir = CLI_DIR / "joint"
+    rec = Recorder()
+    rec.wrap(cli_tns.J, "joint_step", sync=True, keep=True)
+    rec.wrap(importance, "_importance_step")
+    try:
+        js, got = counted(
+            lambda: cli_tns.main(["-s", str(ds), "-m", str(joint_dir), "-r", "1", "--epochs", "10", "--perturb_poses",
+                                  "0.005", "--anchor_weight", "0.5", "--compress", "--data_device", DEVICE]),
+            lambda _: (rec.calls("joint_step") + rec.calls("_importance_step"),) * 2,
+            "cli.train_no_splatting (K1 = K2 = joint steps + sensitivity views)")
+    finally:
+        rec.restore()
+    add(got)
+    n_cams = js.evs.shape[0]
+    poses = np.load(joint_dir / "optimized_poses.npy")
+    starts = js.anchors.cpu().numpy()
+    ovf = [(int(m["overflow"]), int(m["grad_overflow"])) for _, m in rec.outputs["joint_step"]]
+    joint_ms = [(b - a) * 1e3 for a, b in rec.spans["joint_step"]]
+    log(f"  {rec.calls('joint_step')} joint steps over {n_cams} cameras; per-camera steps "
+        f"{js.ev_t.cpu().numpy().astype(int).tolist()}; losses {[round(float(m['loss']), 5) for _, m in rec.outputs['joint_step']]}")
+    log(f"  ms per joint step (the call to a device sync): median {statistics.median(joint_ms[1:]):.3f}, all "
+        f"{[round(v, 1) for v in joint_ms]}")
+    log(f"  pose change per camera, max |pose - start|: {np.abs(poses - starts).max(1).round(7).tolist()}")
+    assert poses.shape == (n_cams, 7) and np.isfinite(poses).all(), poses.shape
+    assert np.allclose(np.linalg.norm(poses[:, :4], axis=1), 1.0, atol=1e-5), "non-unit quaternions"
+    assert rec.calls("joint_step") == n_cams and bool((js.ev_t == 1).all()), "not every camera was stepped once"
+    assert (np.abs(poses - starts).max(1) > 0).all(), "a stepped pose did not move"
+    # the CLI's capacity policy starts at 2^20 slots, as train_no_splatting
+    # .py's does, and grows each bucket after a step that clipped it (a soft
+    # degradation of that step): each bucket may clip once, on its first
+    # frame, and never again
+    log(f"  (overflow, grad_overflow) per step: {ovf}")
+    assert sum(o > 0 for o, _ in ovf) <= 1 and sum(g > 0 for _, g in ovf) <= 1, f"a bucket clipped twice: {ovf}"
+    ply = joint_dir / "point_cloud" / f"iteration_{n_cams}" / "point_cloud.ply"
+    written_ply_matches(ply, js.train.scene)
+    vq = io_npz.load_npz(joint_dir / "point_cloud_vq.npz", override_quantization=True, device=DEVICE)
+    assert vq.is_color_indexed and vq.is_gaussian_indexed
+    c0 = cli_tns.Scene(source_path=str(ds), model_path="", scene=vq, resolution=1, shuffle=False,
+                       device=DEVICE).get_train_cameras()[0]
+    out, got = counted(
+        lambda: metrics.render_full(vq, c0.extrinsic_vector, settings_from_intrinsic(c0.intrinsic, inference=True),
+                                    np.zeros(3), device=DEVICE),
+        lambda o: (o["renders"], 0), "point_cloud_vq.npz served")
+    add(got)
+    assert int(out["overflow"]) == 0 and bool(torch.isfinite(out["render"]).all())
+    log(f"  point_cloud_vq.npz: {(joint_dir / 'point_cloud_vq.npz').stat().st_size} B, {vq.capacity} rows; served "
+        f"view PSNR against its photo {float(losses.psnr(out['render'], torch.as_tensor(c0.original_image, device=DEVICE))[0, 0]):.4f}")
+
+    # -- cli.run_indexed, then cli.npz2ply
+    preview = CLI_DIR / "indexed_preview.png"
+    rec = Recorder()
+    rec.wrap(importance, "_importance_step")
+    rec.wrap(finetune.trainer, "train_step")
+    try:
+        (comp, view), got = counted(
+            lambda: cli_run_indexed.main(["-s", str(ds), "-m", str(model), "--finetune_iterations", "12", "--out",
+                                          str(preview), "--data_device", DEVICE]),
+            lambda _: (rec.calls("_importance_step") + rec.calls("train_step") + 2,
+                       rec.calls("_importance_step") + rec.calls("train_step")),
+            "cli.run_indexed (K1 = sensitivity + finetune + its probe + the view)")
+    finally:
+        rec.restore()
+    add(got)
+    size = cameras.resolve_resolution(width, height, -1)  # run_indexed.py's Scene: the default ladder too
+    assert rec.calls("train_step") == 12 and Image.open(preview).size == size
+    assert bool(torch.isfinite(view["render"]).all()) and comp.is_color_indexed
+    log(f"  {preview.name}: {size[0]}x{size[1]}, finite; {comp.capacity} rows, overflow {int(view['overflow'])}")
+    ply = CLI_DIR / "npz2ply.ply"
+    deindexed, got = counted(lambda: cli_npz2ply.main([str(model / "vq" / "point_cloud.npz"), str(ply),
+                                                       "--data_device", DEVICE]),
+                             lambda _: (0, 0), "cli.npz2ply")
+    written_ply_matches(ply, deindexed)
+
+    densify_check(ds / "sparse" / "0" / "points3D.bin")
+    lpips_check(cams[0].original_image, cams[1].original_image)
+    log(f"  K1 and K2 launches over the phase: {total}")
+    log(f"  card: {smi('name,power.limit')}")
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1863,12 +2183,15 @@ def main() -> int:
     k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
     k4["launches"] = train_pt[k4["name"]]
     probes = phase_probes()
-    compress_launches = phase_compress(scene, cams, serve_ms)
+    compress_launches, compressed = phase_compress(scene, cams, serve_ms)
     k1["launches"] += compress_launches[k1["name"]]  # sensitivity, finetune and serving the npz
     k2["launches"] += compress_launches[k2["name"]]  # sensitivity and finetune
     cli_launches = phase_cli(scene)
     k1["launches"] += cli_launches[k1["name"]]  # the CLIs' steps, evals, sensitivity, finetune, renders
     k2["launches"] += cli_launches[k2["name"]]  # the CLIs' steps, sensitivity and finetune
+    pose_launches = phase_pose(scene, cams, compressed)
+    k1["launches"] += pose_launches[k1["name"]]  # pose and joint steps, sensitivity, finetune, renders
+    k2["launches"] += pose_launches[k2["name"]]  # pose and joint steps, sensitivity and finetune
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
     print(card, flush=True)

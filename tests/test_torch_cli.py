@@ -4,8 +4,10 @@ CPU, on tests/synth.py's Blender folder at 32 px.
 
 Bars:
 - parsers: the same option strings, defaults, types and actions as the
-  JAX scripts', data_device's default ("cuda" here, "tpu" there) apart;
-  the metrics CLI adds --data_device;
+  JAX scripts' (train, compress, render, metrics, train_camera,
+  train_no_splatting, npz2ply, run_indexed), data_device's default
+  ("cuda" here, "tpu" there) apart; the metrics, train_camera, npz2ply
+  and run_indexed CLIs add --data_device;
 - save_config / load_combined_args: files either package writes load in
   the other; a JAX `cfg_args` Namespace repr loads;
 - the train CLI against train.main on one folder, 2 epochs of one step
@@ -23,12 +25,20 @@ Bars:
   scripts write (results.json, per_view.json, times.json, cfg_args.json,
   the PNG dump's layout); JAX's metrics.py on the port's dump gives the
   port's PSNR and SSIM at atol 1e-4, render_and_eval's bar
-  (tests/test_torch_serve.py::test_render_and_eval_matches_jax).
+  (tests/test_torch_serve.py::test_render_and_eval_matches_jax); with an
+  LPIPS weights file at both packages' default paths, per-view and mean
+  LPIPS at rtol 1e-4;
+- train_no_splatting for 1 epoch against train_no_splatting.py:
+  optimized_poses.npy within 1e-5, the .ply by tests/ply_bars.py;
+  train_camera against train_camera.py: the printed pose errors and
+  losses to their printed digits; npz2ply's .ply equal to npz2ply.py's
+  but for one-ulp log scales (atol 1e-6); run_indexed's wiring.
 """
 import argparse
 import json
 import os
 import random
+import re
 import sys
 
 import numpy as np
@@ -41,16 +51,24 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
 
 import compress as jcompress_cli  # noqa: E402
 import metrics as jmetrics_cli  # noqa: E402
+import npz2ply as jnpz2ply_cli  # noqa: E402
 import render as jrender_cli  # noqa: E402
+import run_indexed as jrun_indexed_cli  # noqa: E402
 import train as jtrain_cli  # noqa: E402
+import train_camera as jtrain_camera_cli  # noqa: E402
+import train_no_splatting as jtns_cli  # noqa: E402
 from c3dgs_tpu import config as jconfig
 from c3dgs_tpu.models import io_ply as jply
 from c3dgs_tpu_torch import config as tconfig
 from c3dgs_tpu_torch.cli import compress as tcompress_cli
 from c3dgs_tpu_torch.cli import metrics as tmetrics_cli
+from c3dgs_tpu_torch.cli import npz2ply as tnpz2ply_cli
 from c3dgs_tpu_torch.cli import render as trender_cli
+from c3dgs_tpu_torch.cli import run_indexed as trun_indexed_cli
 from c3dgs_tpu_torch.cli import train as ttrain_cli
-from c3dgs_tpu_torch.models import io_ply as tply
+from c3dgs_tpu_torch.cli import train_camera as ttrain_camera_cli
+from c3dgs_tpu_torch.cli import train_no_splatting as ttns_cli
+from c3dgs_tpu_torch.models import io_npz, io_ply as tply
 from c3dgs_tpu_torch.train import checkpoint
 from tests import synth
 
@@ -112,39 +130,52 @@ def assert_logs_match(tlog, jlog):
         np.testing.assert_allclose(a["ema_psnr"], b["ema_psnr"], atol=1e-3)
 
 
-def parser_of(main, argv, stub):
-    """The ArgumentParser `main` builds, with the work behind it (the
-    module attribute `stub`) stubbed out."""
+class _Parsed(Exception):
+    """Raised by parser_of's spy once the CLI's parser has parsed."""
+
+
+def parser_of(main, argv):
+    """The ArgumentParser `main` builds, each action by its option strings
+    (a positional by its dest); `main` stops when it has parsed."""
     seen = {}
     real = argparse.ArgumentParser.parse_args
 
     def spy(self, args=None, namespace=None):
         seen["parser"] = self
-        return real(self, args, namespace)
+        real(self, args, namespace)
+        raise _Parsed
 
     with pytest.MonkeyPatch.context() as m:
         m.setattr(argparse.ArgumentParser, "parse_args", spy)
         m.setattr(jconfig, "setup_jax_cache", lambda *a, **k: None)
-        m.setattr(*stub, lambda *a, **k: None)
-        main(argv)
+        with pytest.raises(_Parsed):
+            main(argv)
     return {
-        tuple(a.option_strings): (a.default, a.type, type(a).__name__, a.nargs, a.choices)
+        tuple(a.option_strings) or a.dest: (a.default, a.type, type(a).__name__, a.nargs, a.choices)
         for a in seen["parser"]._actions
         if a.option_strings != ["-h", "--help"]
     }
 
 
-@pytest.mark.parametrize("cli", ["train", "compress", "render", "metrics"])
+JAX_CLIS = {"train": jtrain_cli, "compress": jcompress_cli, "render": jrender_cli, "metrics": jmetrics_cli,
+            "train_camera": jtrain_camera_cli, "train_no_splatting": jtns_cli, "npz2ply": jnpz2ply_cli,
+            "run_indexed": jrun_indexed_cli}
+PORT_CLIS = {"train": ttrain_cli, "compress": tcompress_cli, "render": trender_cli, "metrics": tmetrics_cli,
+             "train_camera": ttrain_camera_cli, "train_no_splatting": ttns_cli, "npz2ply": tnpz2ply_cli,
+             "run_indexed": trun_indexed_cli}
+
+
+@pytest.mark.parametrize("cli", list(JAX_CLIS))
 def test_parsers_match_the_jax_scripts(cli, tmp_path):
-    stub = {"train": "training", "compress": "run_vq", "render": "render_sets", "metrics": "evaluate"}[cli]
-    jmod = {"train": jtrain_cli, "compress": jcompress_cli, "render": jrender_cli, "metrics": jmetrics_cli}[cli]
-    tmod = {"train": ttrain_cli, "compress": tcompress_cli, "render": trender_cli, "metrics": tmetrics_cli}[cli]
-    jp = parser_of(jmod.main, ["-m", str(tmp_path / "jax")], (jmod, stub))
-    tp = parser_of(tmod.main, ["-m", str(tmp_path / "port")], (tmod, stub))
-    if cli == "metrics":
-        assert tp.pop(("--data_device",)) == ("cuda", str, "_StoreAction", None, None)
+    argv = {"npz2ply": ["in.npz", "out.ply"], "train_camera": ["-s", "src", "-m", str(tmp_path)],
+            "run_indexed": ["-s", "src", "-m", str(tmp_path)]}.get(cli, ["-m", str(tmp_path)])
+    jp = parser_of(JAX_CLIS[cli].main, argv)
+    tp = parser_of(PORT_CLIS[cli].main, argv)
     dd = ("--data_device",)
-    if cli == "train":
+    if cli in ("metrics", "train_camera", "npz2ply", "run_indexed"):
+        # the port's addition: the JAX scripts run on JAX's default device
+        assert tp.pop(dd) == ("cuda", str, "_StoreAction", None, None)
+    if cli in ("train", "train_no_splatting"):
         assert (jp[dd][0], tp[dd][0]) == ("tpu", "cuda")
         jp[dd], tp[dd] = jp[dd][1:], tp[dd][1:]
     assert tp == jp
@@ -299,6 +330,13 @@ def test_clis_raise_without_a_card_unless_cpu(dataset, tmp_path, monkeypatch):
         ttrain_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--epochs", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tmetrics_cli.main(["-m", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttns_cli.main(["-s", dataset, "-m", str(tmp_path / "j"), "--epochs", "1"])
+    for main, argv in ((ttrain_camera_cli.main, ["-s", dataset, "-m", str(tmp_path)]),
+                       (trun_indexed_cli.main, ["-s", dataset, "-m", str(tmp_path)]),
+                       (tnpz2ply_cli.main, [str(tmp_path / "in.npz"), str(tmp_path / "out.ply")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
 
 
 def test_train_cli_snapshots_and_raises_on_a_non_finite_loss(dataset, tmp_path, monkeypatch):
@@ -317,3 +355,131 @@ def test_train_cli_snapshots_and_raises_on_a_non_finite_loss(dataset, tmp_path, 
     snap = np.load(os.path.join(model, "snapshot_step_1.npz"))
     assert {"extrinsic_vector", "intrinsic", "scene_xyz", "scene_active", "scene_scaling_factor"} <= set(snap.files)
     assert snap["scene_xyz"].shape == (1600, 3) and snap["intrinsic"].shape == (3, 3)
+
+
+# ------------------------------------------- pose, joint and small CLIs
+POSE_LINE = re.compile(r"^\[(\S+)\] pose error (\S+) -> (\S+) \(loss (\S+)\)$", re.M)
+
+
+def test_train_no_splatting_cli_matches_jax(dataset, tmp_path):
+    """One epoch (camera 0 only, at a pose perturbed from its anchor)
+    in both packages: optimized_poses.npy within 1e-5, the .ply by
+    tests/ply_bars.py, cfg_args.json alike. The port's run adds
+    --compress: point_cloud_vq.npz loads as a codebook-indexed scene."""
+    argv = ["-s", dataset, "--epochs", "1", "--perturb_poses", "0.005", "--anchor_weight", "0.5"]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jtns_cli.main([*argv, "-m", jdir])
+    js = ttns_cli.main([*argv, "-m", tdir, "--compress", *CPU])
+    jposes, tposes = (np.load(os.path.join(d, "optimized_poses.npy")) for d in (jdir, tdir))
+    assert tposes.shape == jposes.shape == (3, 7) and np.isfinite(tposes).all()
+    np.testing.assert_allclose(tposes, jposes, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(tposes[:, :4], axis=1), 1.0, atol=1e-6)
+    assert float(js.ev_t[0]) == 1.0 and float(js.ev_t[1:].sum()) == 0.0
+    ply = os.path.join("point_cloud", "iteration_1", "point_cloud.ply")
+    assert_trained_plys_close(tply.read_vertices(os.path.join(tdir, ply)), tply.read_vertices(os.path.join(jdir, ply)),
+                              steps=1)
+    jcfg, tcfg = (json.load(open(os.path.join(d, "cfg_args.json"))) for d in (jdir, tdir))
+    assert (jcfg["model"].pop("data_device"), tcfg["model"].pop("data_device")) == ("tpu", "cpu")
+    jcfg["model"]["model_path"] = tcfg["model"]["model_path"]
+    assert tcfg == jcfg
+    vq = io_npz.load_npz(os.path.join(tdir, "point_cloud_vq.npz"), device="cpu")
+    assert vq.is_color_indexed and vq.is_gaussian_indexed and vq.capacity == js.train.scene.num_active
+
+
+def test_train_camera_cli_matches_jax(dataset, trained, tmp_path, capsys):
+    """Two cameras, 5 Adam steps each, from np.random.default_rng(0)'s
+    perturbations, against the port-trained .ply in both packages: the
+    printed errors agree to their 4 decimals (1.5e-4) and the losses to
+    their 5 (1.5e-5); --dump_dir writes one PNG per camera."""
+    _, tdir = trained
+    argv = ["-s", dataset, "-m", tdir, "--num_cameras", "2", "--iterations", "5"]
+    jtrain_camera_cli.main(argv)
+    jlines = POSE_LINE.findall(capsys.readouterr().out)
+    dump = str(tmp_path / "dump")
+    results = ttrain_camera_cli.main([*argv, "--dump_dir", dump, *CPU])
+    tlines = POSE_LINE.findall(capsys.readouterr().out)
+    assert [t[0] for t in tlines] == [j[0] for j in jlines] == ["r_0", "r_1"]
+    for t, j in zip(tlines, jlines):
+        np.testing.assert_allclose([float(v) for v in t[1:3]], [float(v) for v in j[1:3]], atol=1.5e-4)
+        np.testing.assert_allclose(float(t[3]), float(j[3]), atol=1.5e-5)
+    assert [r["image_name"] for r in results] == ["r_0", "r_1"] and all(np.isfinite(r["loss"]) for r in results)
+    assert sorted(os.listdir(dump)) == ["r_0_opt.png", "r_1_opt.png"]
+    from PIL import Image
+
+    assert Image.open(os.path.join(dump, "r_0_opt.png")).size == (32, 32)
+
+
+def test_npz2ply_cli_matches_jax(tmp_path):
+    """tests/test_cli.py::test_npz2ply_cli's npz through both CLIs: the
+    same columns, equal arrays but for the log scales, which pass through
+    each package's exp and norm and part by one ulp in a few rows (3 of 50
+    here, 1.19e-7): those at test_torch_model_io.py's cross-package .ply
+    bar, 1e-6."""
+    from c3dgs_tpu.models import gaussians as jgauss
+    from c3dgs_tpu.models import io_npz as jnpz
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(50, 3)).astype(np.float32)
+    cols = rng.random(size=(50, 3)).astype(np.float32)
+    scene = jgauss.from_point_cloud(pts, cols, capacity=50, quantization=True)
+    scene = scene.replace(quant=scene.update_observers().quant)
+    npz = str(tmp_path / "pc.npz")
+    jnpz.save_npz(scene, npz)
+    jout, tout = str(tmp_path / "jax.ply"), str(tmp_path / "port.ply")
+    jnpz2ply_cli.main([npz, jout])
+    tnpz2ply_cli.main([npz, tout, *CPU])
+    got, ref = tply.read_vertices(tout), tply.read_vertices(jout)
+    assert list(got) == list(ref)
+    for name in ref:
+        if name.startswith("scale_"):
+            np.testing.assert_allclose(got[name], ref[name], atol=1e-6, rtol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+
+
+def test_run_indexed_cli(dataset, trained, tmp_path):
+    """run_indexed.py's wiring in the port: to_compressed over the test
+    split's first camera, 2 finetune steps, one inference render to
+    --out."""
+    _, tdir = trained
+    out = str(tmp_path / "preview.png")
+    compressed, rendered = trun_indexed_cli.main(["-s", dataset, "-m", tdir, "--finetune_iterations", "2", "--out", out,
+                                                  *CPU])
+    assert compressed.is_color_indexed and compressed.is_gaussian_indexed
+    assert bool(torch.isfinite(rendered["render"]).all()) and int(rendered["overflow"]) == 0
+    from PIL import Image
+
+    assert Image.open(out).size == (32, 32)
+
+
+def test_metrics_cli_computes_lpips_when_weights_exist(tmp_path, monkeypatch):
+    """Both metrics CLIs given one random-weights file at their default
+    paths (tests/test_lpips.py's recipe): per-view and mean LPIPS at
+    rtol 1e-4, no LPIPS_reason."""
+    from c3dgs_tpu.eval import lpips as jlpips
+    from c3dgs_tpu_torch.eval import lpips as tlpips
+    from PIL import Image
+    from test_lpips import _random_weights
+
+    rng = np.random.default_rng(0)
+    weights = str(tmp_path / "lpips_vgg.npz")
+    np.savez(weights, **_random_weights(rng))
+    for mod in (jlpips, tlpips):
+        monkeypatch.setattr(mod, "default_weights", lambda net_type="vgg": weights)
+    model = tmp_path / "model"
+    for sub in ("renders", "gt"):
+        os.makedirs(model / "test" / "ours_1" / sub)
+    for i in range(2):
+        img = (rng.random(size=(32, 32, 3)) * 255).astype(np.uint8)
+        noisy = np.clip(img + rng.normal(size=img.shape) * 20, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(model / "test" / "ours_1" / "gt" / f"{i}.png")
+        Image.fromarray(noisy).save(model / "test" / "ours_1" / "renders" / f"{i}.png")
+    scores = []
+    for run in (lambda: tmetrics_cli.main(["-m", str(model), *CPU]), lambda: jmetrics_cli.main(["-m", str(model)])):
+        run()
+        scores.append((json.load(open(model / "results.json")), json.load(open(model / "per_view.json"))))
+    (tres, tper), (jres, jper) = scores
+    assert list(tres["test/ours_1"]) == list(jres["test/ours_1"]) == ["SSIM", "PSNR", "LPIPS"]
+    np.testing.assert_allclose(tres["test/ours_1"]["LPIPS"], jres["test/ours_1"]["LPIPS"], rtol=1e-4)
+    for name in jper:
+        np.testing.assert_allclose(tper[name]["lpips"], jper[name]["lpips"], rtol=1e-4)

@@ -8,7 +8,9 @@ port's oracle and CPU path in both kernel families, the SSIM gradient
 in fp32, and the compression path: an indexed scene's render and
 codebook gradients against the CPU path, bitwise-repeatable VQ and
 codebook gradients, fp32 nearest-codebook search, two finetune steps and
-eigh past cuSOLVER's batch limit.
+eigh past cuSOLVER's batch limit; the train CLI on the card against the
+CPU; the pose gradient and a camera_step, and LPIPS, on the card against
+the CPU.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -866,3 +868,84 @@ def test_train_cli_on_card_matches_cpu(tmp_path):
     assert (a["it"], a["active"]) == (b["it"], b["active"]) == (2, 400)
     np.testing.assert_allclose(a["ema_loss"], b["ema_loss"], rtol=1e-5)
     assert_trained_plys_close(plys["cuda"], plys["cpu"], steps=2)
+
+
+def pose_scene(device):
+    """tests/test_camera_opt.py::test_pose_recovery's scene (150 splats
+    around z = 3, 48x48, SH degree 0), its render at the identity as the
+    target, and the perturbed start."""
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(150, 3)).astype(np.float32) * 0.6
+    pts[:, 2] += 3.0
+    scene = gaussians.from_point_cloud(pts, rng.random(size=(150, 3)).astype(np.float32), capacity=150,
+                                       quantization=False, device=device)
+    settings = RasterSettings(width=48, height=48, tanfovx=math.tan(0.5), tanfovy=math.tan(0.5), sh_degree=0)
+    with torch.no_grad():
+        gt = trainer.render_scene(scene, EV, settings, np.zeros(3), device=device)["render"].clone()
+    ev0 = EV + np.array([0.01, -0.01, 0.005, 0, 0.05, -0.04, 0.02], np.float32)
+    return scene, settings, gt, ev0
+
+
+@pytest.mark.gpu
+def test_pose_gradient_and_camera_step_on_card_match_cpu():
+    """The pose loss (anchored at the start, weight 0.5) on the card
+    against the CPU path: the loss at atol 1e-6, the pose gradient at
+    normalized 5e-4, one K1 and one K2 launch and no gradient in the
+    scene; then one camera_step each: ev within 1e-5."""
+    from c3dgs_tpu_torch.train import camera_opt
+
+    _need_card()
+    got = {}
+    for dev in ("cpu", "cuda"):
+        scene, settings, gt, ev0 = pose_scene(dev)
+        ev = torch.as_tensor(ev0, device=dev)
+        bg = torch.zeros(3, device=dev)
+        kernels.reset_counts()
+        loss, grad, out = camera_opt.pose_loss_and_grad(scene, ev, gt, settings, bg, ev.clone(), 0.5)
+        launches = (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches)
+        assert launches == ((1, 1) if dev == "cuda" else (0, 0)), (dev, launches)
+        assert int(out["overflow"]) == 0 and scene.xyz.grad is None
+        state = trainer.adam_init({"ev": ev})
+        ev, state, _ = camera_opt.camera_step(scene, ev, state, gt, settings, bg, 3e-3, torch.as_tensor(ev0, device=dev),
+                                              0.5)
+        got[dev] = (float(loss), grad.cpu(), ev.cpu())
+    np.testing.assert_allclose(got["cuda"][0], got["cpu"][0], atol=1e-6, rtol=0)
+    assert_normalized(got["cuda"][1], got["cpu"][1], GRAD_TOL, "pose gradient")
+    torch.testing.assert_close(got["cuda"][2], got["cpu"][2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net_type", ["vgg", "alex"])
+def test_lpips_on_card_matches_cpu(net_type, tmp_path):
+    """LPIPS on seeded random weights (tools/scenes.py, tests/test_lpips.py's
+    recipe) at 3x256x192 on the card and on the CPU, rtol 1e-4: the
+    convolutions run in IEEE fp32 on the card, and the global cuDNN
+    setting is left as it was."""
+    from c3dgs_tpu_torch.eval import lpips
+
+    _need_card()
+    rng = np.random.default_rng(0)
+    path = str(tmp_path / f"lpips_{net_type}.npz")
+    np.savez(path, **scenes.lpips_random_weights(net_type, rng))
+    x = rng.random(size=(3, 192, 256)).astype(np.float32)
+    y = np.clip(x + rng.normal(size=x.shape).astype(np.float32) * 0.1, 0, 1).astype(np.float32)
+    before = torch.backends.cudnn.conv.fp32_precision
+    card = float(lpips.LPIPS(path, net_type, device="cuda")(x, y))
+    assert torch.backends.cudnn.conv.fp32_precision == before
+    ref = float(lpips.LPIPS(path, net_type, device="cpu")(x, y))
+    assert ref > 1e-6
+    np.testing.assert_allclose(card, ref, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_knn_indices_on_card_match_cpu():
+    """densify_initial's kNN on 20,000 points of the bench cloud's shape:
+    the same indices on the card and on the CPU (cuBLAS's matmul picked
+    other neighbours in 4 rows of 20,000)."""
+    from c3dgs_tpu_torch.train import densify_initial
+
+    _need_card()
+    pts = np.random.default_rng(1).normal(size=(20_000, 3)).astype(np.float32) * 2.0
+    pts[:, 2] += 6.0
+    card, cpu = (densify_initial._knn_indices(pts, 3, device=dev) for dev in ("cuda", "cpu"))
+    np.testing.assert_array_equal(card, cpu)
