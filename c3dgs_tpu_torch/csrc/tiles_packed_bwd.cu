@@ -4,7 +4,7 @@
 // (backward_kernel, launched by pallas_call at
 // c3dgs_tpu/render/rasterizer.py:221). Same information in, the same
 // per-slot gradient rows out: the staged fields of
-// rasterizer._build_fields_packed, K1's (T, 8, 512) blocks (row 3
+// rasterizer._build_fields_packed, K1's (t_out, 8, 512) blocks (row 3
 // exp(lt_final), row 4 lt_final, row 5 the freeze slot), the cotangent
 // blocks (rows 0-2 dL/dC, row 3 dL/dT_final), starts/ends and meta. Out is
 // the zero-initialized (16, exec_cap) f32 buffer, one column per sorted
@@ -20,6 +20,12 @@
 // blocks are unwritten memory, so the CTA returns before reading them and
 // their rows stay zero (what the TPU gives them: zero cotangent, zero
 // open-tile state).
+//
+// Tile range, as in K1: meta = [chunks_exec, tile_start, tile_end, cap] on
+// the device; CTA i is global tile tile_start + i and reads block i of K1's
+// blocks and of the cotangent (local numbering, as the TPU's
+// t - tile_start); a CTA at or past tile_end (a padding tile) walks
+// nothing and its rows stay zero.
 //
 // Numerics (the exact-mode `compute` of tiles_packed.py:851-1016), per
 // pixel, walking the tile's slots back to front from lt = lt_final with the
@@ -103,10 +109,11 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
   __shared__ __align__(128) float sf[2][STAGED][CHUNK];
   __shared__ float part[WARPS * NSUM][PART_LD];  // row warp*9 + value
   __shared__ __align__(8) uint64_t bar[2];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;  // local block: global tile meta[1] + t
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  if (meta[1] + t >= meta[2]) return;  // a padding tile past the range
   const int e = ends[t];  // the tile's sentinel slot
   if (e >= meta[0] * CHUNK) return;  // never flushed: blocks unwritten
   const int s = starts[t];
@@ -215,9 +222,11 @@ extern "C" {
 
 // fields: (16, stride) f32 staged sorted fields (rows 0-8 and 10 read),
 // 16-byte aligned with stride a multiple of 128; starts/ends: (num_tiles,)
-// i32 tile slot ranges (ends = sentinel slots); meta: (4,) i32 on the
-// device, [chunks_exec, tile_start, tile_end, cap]; totals: K1's
-// (num_tiles, 8, 512) f32 blocks; gout: their cotangent, same shape; grads:
+// i32 slot ranges of the tiles tile_start, tile_start + 1, ... (ends =
+// sentinel slots); meta: (4,) i32 on the device, [chunks_exec, tile_start,
+// tile_end, cap]: CTA i is global tile tile_start + i, and CTAs at or past
+// tile_end walk nothing; totals: K1's (num_tiles, 8, 512) f32 blocks, in
+// the same local numbering; gout: their cotangent, same shape; grads:
 // (16, stride) f32, zero-initialized by the caller. Launches on `stream`;
 // returns cudaGetLastError() (0 when the launch was accepted).
 int c3dgs_tiles_packed_bwd(const float* fields, long long stride,

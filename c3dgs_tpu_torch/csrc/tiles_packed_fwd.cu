@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel c3dgs_tpu/render/tiles_packed.py:149
 // (forward_kernel, launched by pallas_call at
 // c3dgs_tpu/render/rasterizer.py:121). Same contract: the same staged
-// fields in, the same (T, 8, 512) f32 tile blocks out:
+// fields in, the same (t_out, 8, 512) f32 tile blocks out, block i for
+// global tile meta[1] + i:
 //   rows 0-2  color without background
 //   row  3    exp(lt_final)
 //   row  4    lt_final (log transmittance; the backward's walk anchor)
@@ -12,6 +13,18 @@
 //   rows 6-7  zero
 // Tiles whose sentinel lies at or past meta[0]*128 (the execution clamp)
 // are left unwritten; assemble_image's `complete` mask replaces them.
+//
+// Tile range. meta = [chunks_exec, tile_start, tile_end, cap], read on the
+// device. A single-device render passes [0, T) with T blocks. Under tile
+// sharding (c3dgs_tpu_torch/parallel/sharded.py) the fields are one
+// device's routed array, which holds only its owned tiles, and starts/ends
+// hold those tiles' ranges in it: block i is global tile tile_start + i,
+// and a block at or past tile_end (the last device's padding tiles when
+// the device count does not divide T) writes nothing and walks nothing.
+// Lanes of tiles outside the range never lie inside an owned tile's
+// [starts[i], ends[i]), so they stay dead as on the TPU
+// (tiles_packed.py:231), and the freeze is still decided at this array's
+// own 128-slot boundaries.
 //
 // Numerics. The TPU kernel walks the global sorted instance array one
 // aligned 128-slot chunk per grid step; here one CTA owns one 32x16 tile
@@ -76,8 +89,9 @@ tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
                         float* __restrict__ out) {
   __shared__ __align__(128) float sf[2][USED][CHUNK];
   __shared__ __align__(8) uint64_t bar[2];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x;  // local block: global tile meta[1] + t
   const int tid = threadIdx.x;
+  if (meta[1] + t >= meta[2]) return;  // a padding tile past the range
   const int e = ends[t];  // the tile's sentinel slot
   if (e >= meta[0] * CHUNK) return;  // never flushed on a clamped frame
   const int s = starts[t];
@@ -177,9 +191,11 @@ tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
 extern "C" {
 
 // fields: (16, stride) f32 staged sorted fields (rows 0-8 read), 16-byte
-// aligned with stride a multiple of 128; starts/ends: (num_tiles,) i32 tile
-// slot ranges (ends = sentinel slots); meta: (4,) i32 on the device,
-// [chunks_exec, tile_start, tile_end, cap]; out: (num_tiles, 8, 512) f32.
+// aligned with stride a multiple of 128; starts/ends: (num_tiles,) i32 slot
+// ranges of the tiles tile_start, tile_start + 1, ... (ends = sentinel
+// slots); meta: (4,) i32 on the device, [chunks_exec, tile_start,
+// tile_end, cap]: block i is global tile tile_start + i, and blocks at or
+// past tile_end are left unwritten; out: (num_tiles, 8, 512) f32.
 // Launches on `stream`; returns cudaGetLastError() (0 when the launch was
 // accepted).
 int c3dgs_tiles_packed_fwd(const float* fields, long long stride,

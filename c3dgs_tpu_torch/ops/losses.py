@@ -6,6 +6,7 @@ Images are CHW float tensors in [0,1], optionally with a leading batch axis.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,7 +89,7 @@ def ssim(
     img1: torch.Tensor,
     img2: torch.Tensor,
     window_size: int = 11,
-    size_average: bool = True,
+    size_average: Optional[bool] = True,
 ) -> torch.Tensor:
     """Structural similarity (11x11 gaussian window, sigma 1.5, zero
     padding), CHW or BCHW."""
@@ -108,6 +109,8 @@ def ssim(
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
+    if size_average is None:  # the raw (B, C, H, W) map (the sharded slab loss)
+        return ssim_map
     if size_average:
         return ssim_map.mean()
     return ssim_map.mean(dim=(1, 2, 3))

@@ -11,7 +11,8 @@ their plain torch equivalents:
 - `_rank_in_sorted` (#{boundaries <= q} by two packed sorts) is
   torch.searchsorted(..., right=True);
 - quantize_depth runs the same f32 operation order and clamps in int64.
-The tile-sharded `bin_gaussians_routed` comes with the multi-device slice.
+The tile-sharded `bin_gaussians_routed` runs on one rank of a mesh's
+`tiles` axis (parallel/mesh.py) and routes instances with its all_to_all.
 """
 from __future__ import annotations
 
@@ -297,4 +298,169 @@ def per_gaussian_table(prep: Preprocessed, offset: torch.Tensor) -> torch.Tensor
             torch.zeros((n, NUM_FIELDS - OFFSET_ROW - 1), dtype=dt, device=dev),
         ],
         1,
+    )
+
+
+class RoutedBinning(NamedTuple):
+    """One rank's sorted instance bookkeeping under tile sharding (port of
+    c3dgs_tpu/render/binning.py:500-526; produced by bin_gaussians_routed).
+
+    The local sorted array holds ONLY this rank's owned tiles' kept
+    instances (routed in by an all_to_all), interleaved with one sentinel
+    row per owned tile, then pad rows. Within a tile the (key, payload)
+    order is the unsharded global sort's. Unlike the JAX record it also
+    carries the owned tiles' slot ranges, which K1 and K2 walk."""
+
+    gid_sorted: torch.Tensor  # (cap_local,) int32 source gaussian (clamped)
+    j_sorted: torch.Tensor  # (cap_local,) int32 within-gaussian tile index
+    tid_sorted: torch.Tensor  # (cap_local,) int32 tile (GLOBAL ids; sentinels
+    # carry their real tile, pads num_tiles)
+    sent_sorted: torch.Tensor  # (cap_local,) bool sentinel/pad rows
+    tile_lo: torch.Tensor  # (cap_local//CHUNK + 1,) int32 GLOBAL-numbered
+    # first-unflushed-tile per chunk boundary (t0 + #owned sentinels before)
+    chunks_exec: torch.Tensor  # () int32 chunks covering all owned sentinels
+    t0: int  # first owned tile
+    t1: int  # one past the last owned tile (t0 + n_owned)
+    emit_cum: torch.Tensor  # (N,) int32 inclusive per-gaussian emission prefix
+    offset: torch.Tensor  # (N,) int32 first emission slot (global)
+    num_instances: torch.Tensor  # () int32 true emitted instances (global)
+    overflow: torch.Tensor  # () int32 instances past the global slot budget
+    clipped: torch.Tensor  # () int32 tiles dropped by the per-gaussian cap
+    route_dropped: torch.Tensor  # () int32 LOCAL instances dropped because a
+    # (source, dest) routing budget overflowed: psum for the global count
+    starts: torch.Tensor  # (t_local,) int32 first slot of each owned tile
+    ends: torch.Tensor  # (t_local,) int32 its sentinel slot; padding
+    # tiles (t0 + i >= t1) get the empty range [cap_local, cap_local)
+
+
+def routed_local_cap(cap: int, shard_num: int, num_tiles: int):
+    """(cap_pair, t_local, cap_local) static routing geometry.
+
+    cap_pair is each (src, dst) all_to_all budget: 2x tile-skew headroom
+    over the even split of a source slice across its possible destinations.
+    A slice has cap/D slots and only min(D, T) reachable destinations (a
+    tiles axis wider than the tile grid routes everything into T owners),
+    so the even split is cap/D/min(D, T); overshoot beyond 2x is dropped
+    and counted (RoutedBinning.route_dropped)."""
+    cap_l = cap // shard_num
+    dests = max(1, min(shard_num, num_tiles))
+    cap_pair = -(-2 * cap_l // dests)  # ceil
+    t_pad = -(-num_tiles // shard_num) * shard_num
+    t_local = t_pad // shard_num
+    cap_local = -(-(shard_num * cap_pair + t_local) // CHUNK) * CHUNK
+    return cap_pair, t_local, cap_local
+
+
+def bin_gaussians_routed(prep: Preprocessed, settings: RasterSettings, axis) -> RoutedBinning:
+    """Tile-sharded binning on rank axis.index of the mesh axis `axis`
+    (size D; parallel/mesh.py::Axis): enumeration and sorts run at ~cap/D
+    slots per rank.
+
+      1. enumerate the interleaved slots d + i*D (i < cap/D) -> (key, pj);
+      2. local sort by (key, pj): the tile rides the key's high bits, so
+         the sorted rows fall into D contiguous destination ranges (rank r
+         owns tiles [r*t_local, (r+1)*t_local));
+      3. all_to_all fixed (D, cap_pair, 2) blocks over `axis` (per-pair
+         budget with 2x skew headroom; overshoot counted in route_dropped);
+      4. local merge sort of the received rows + this rank's owned-tile
+         sentinel rows -> the rank's sorted array; tile ranges and tile_lo
+         from the sentinel positions as in bin_gaussians.
+
+    The final (key, pj) order within each tile equals the unsharded global
+    sort's, so rendering matches bin_gaussians on every owned tile."""
+    dev = prep.depth.device
+    n = prep.depth.shape[0]
+    cap, max_tiles = settings.resolve_caps(n)
+    num_tiles = settings.num_tiles
+    shard_num, d = axis.size, axis.index
+    if cap % shard_num:
+        raise ValueError(f"instance capacity {cap} must divide the tiles axis {shard_num} "
+                         "(resolve_caps rounds to 128; use a power-of-two axis)")
+    i64 = dict(dtype=torch.int64, device=dev)
+    j_bits = _payload_bits(n, num_tiles)
+    max_tiles = min(max_tiles, 1 << j_bits)
+    emit, cum, clipped = _emission_prefix(prep, max_tiles)
+    total = cum[-1]
+    overflow = torch.clamp(total - (cap - num_tiles), min=0)
+    ints, floats = _instance_table(prep, cum, emit, num_tiles)
+
+    cap_l = cap // shard_num
+    # INTERLEAVED slot slice (ADVICE r3): emission slots follow gaussian
+    # order, which is spatially coherent after the save-time Morton sort; a
+    # contiguous cap/D block then concentrates on one or two owners and
+    # overflows the per-(src, dst) budget. Striding by D makes every slice
+    # a uniform sample of the emission order; the slots stay ascending.
+    slots = d + torch.arange(cap_l, **i64) * shard_num
+    key, pj, _ = _enumerate_slots(ints, floats, cum, total, slots, n, settings)
+
+    # 2. local sort: ascending tiles partition the rows by destination
+    packed_l, _ = torch.sort((key << 32) | pj)
+    db = DEPTH_BITS(num_tiles)
+    tile_l = packed_l >> (32 + db)
+
+    cap_pair, t_local, cap_local = routed_local_cap(cap, shard_num, num_tiles)
+    # destination ranges: hi_r = #{tiles < (r+1)*t_local} (clamped to T so
+    # the invalid tail, tile T, never routes)
+    qs = torch.clamp(torch.arange(1, shard_num + 1, **i64) * t_local, max=num_tiles) - 1
+    his = _rank_in_sorted(tile_l, qs)
+    los = torch.cat([torch.zeros(1, **i64), his[:-1]])
+    route_dropped = torch.sum(torch.clamp(his - los - cap_pair, min=0))
+
+    # 3. fixed-size send blocks + all_to_all. Pad rows: key past every real
+    # key (tile bits T), payload the invalid marker
+    pad_key = (num_tiles << db) | ((1 << db) - 1)
+    pad_pj = (n + num_tiles) << j_bits
+    idx = los[:, None] + torch.arange(cap_pair, **i64)[None, :]
+    send = packed_l[torch.clamp(idx, max=cap_l - 1)]
+    send = torch.where(idx < his[:, None], send, torch.full_like(send, (pad_key << 32) | pad_pj))
+    recv = axis.all_to_all(send).reshape(-1)  # rows from every source rank
+
+    # 4. local merge: received rows + owned sentinels + chunk pad
+    t0 = d * t_local
+    own = t0 + torch.arange(t_local, **i64)
+    sent_row = (((own << db) | ((1 << db) - 1)) << 32) | ((n + own) << j_bits)
+    sent_row = torch.where(own < num_tiles, sent_row, torch.full_like(sent_row, (pad_key << 32) | pad_pj))
+    n_tail = cap_local - shard_num * cap_pair - t_local
+    tail = torch.full((n_tail,), (pad_key << 32) | pad_pj, **i64)
+    packed, _ = torch.sort(torch.cat([recv, sent_row, tail]))
+    key_s = packed >> 32
+    pj_s = packed & 0xFFFFFFFF
+
+    gid_s = torch.clamp(pj_s >> j_bits, max=n - 1)
+    j_s = pj_s & ((1 << j_bits) - 1)
+    is_sent = pj_s >= (n << j_bits)
+    tid_sorted = torch.clamp(key_s >> db, max=num_tiles)
+
+    # owned-tile ends from sentinel positions: pads are sentinels too but
+    # sort past every owned sentinel (the invariant of bin_gaussians)
+    ends_l = torch.sort((~is_sent).to(torch.uint8), stable=True).indices[:t_local]
+    n_owned = min(max(num_tiles - t0, 0), t_local)
+    owned = torch.arange(t_local, **i64) < n_owned
+    ends = torch.where(owned, ends_l, torch.full_like(ends_l, cap_local))
+    last_end = ends_l[n_owned - 1] if n_owned > 0 else torch.full((), -1, **i64)
+    chunks_exec = torch.div(last_end + 1 + CHUNK - 1, CHUNK, rounding_mode="floor")
+    starts = torch.where(owned, torch.cat([torch.zeros(1, **i64), ends[:-1] + 1]), ends)
+
+    nc = cap_local // CHUNK
+    chunk_starts = torch.arange(nc + 1, **i64) * CHUNK
+    tile_lo = t0 + _rank_in_sorted(ends + 1, chunk_starts)
+
+    i32 = lambda v: v.to(torch.int32)
+    return RoutedBinning(
+        gid_sorted=i32(gid_s),
+        j_sorted=i32(j_s),
+        tid_sorted=i32(tid_sorted),
+        sent_sorted=is_sent,
+        tile_lo=i32(tile_lo),
+        chunks_exec=i32(chunks_exec),
+        t0=t0,
+        t1=t0 + n_owned,
+        emit_cum=i32(cum),
+        offset=i32(cum - emit),
+        num_instances=i32(total),
+        overflow=i32(overflow),
+        clipped=i32(clipped),
+        route_dropped=i32(route_dropped),
+        starts=i32(starts),
+        ends=i32(ends),
     )

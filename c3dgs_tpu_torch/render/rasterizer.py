@@ -117,14 +117,21 @@ def _reduce_instance_grads_packed(grads, perm, boundaries, compensated: bool = F
     """(NUM_FIELDS, exec_cap) slot-aligned grads -> (N, NUM_FIELDS) per
     gaussian: rows reordered gaussian-major by the binning permutation,
     then per-gaussian sums as prefix differences at the emission
-    boundaries (emit_cum). Rows past the emitted total, or perm entries
-    past the execution capacity, are masked before the prefix."""
+    boundaries (emit_cum). Entries past the emitted total, or whose sorted
+    slot lies past the execution capacity, are masked before the prefix.
+
+    The whole permutation is gathered: it is indexed by emission (payload
+    order, culled emissions included), and the emissions can outnumber
+    the execution capacity, whose bound is on the KEPT slots. The
+    reference slices it to exec_cap entries
+    (c3dgs_tpu/render/rasterizer.py:296), which drops every emission past
+    that index from the gradient when the bucket is tight (ROADMAP C)."""
     live = NUM_USED_FIELDS
     n = boundaries.shape[0]
     rows = grads.shape[1]
-    p = perm[:rows].long()
-    d_pre = grads[:live][:, torch.clamp(p, max=rows - 1)]  # (live, rows)
-    idx = torch.arange(rows, device=grads.device)
+    p = perm.long()
+    d_pre = grads[:live][:, torch.clamp(p, max=rows - 1)]  # (live, cap)
+    idx = torch.arange(p.shape[0], device=grads.device)
     keep = (idx < boundaries[-1]) & (p < rows)
     d_pre = torch.where(keep[None, :], d_pre, torch.zeros_like(d_pre))
     seg = _segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
@@ -211,17 +218,21 @@ def blend_gaussians(table, gid_sorted, j_sorted, starts, ends, nchunks, grad_bas
 
 class BlendGaussiansPacked(torch.autograd.Function):
     """Stage the sorted fields and composite them with K1; returns the
-    (T, OUT_ROWS, PIX) tile blocks. The backward runs K2 on the cotangent
-    of those blocks and reduces its per-slot rows to d_table, compensated
-    unless `fast_grad`: through `perm` after a training binning, or, after
-    an inference binning (perm None), by the rows' pre-sort slot keys over
+    (t_out, OUT_ROWS, PIX) tile blocks. The backward runs K2 on the
+    cotangent of those blocks and reduces its per-slot rows to d_table,
+    compensated unless `fast_grad`: through `perm` after a training
+    binning, or, with perm None (an inference binning, or one device's
+    routed array under tile sharding), by the rows' pre-sort slot keys over
     the executed chunks [0, meta[0]*CHUNK), as the reference does
     (c3dgs_tpu/render/rasterizer.py:365-372)."""
 
     @staticmethod
     def forward(ctx, table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
-                tile_lo, meta, starts, ends, perm, emit_cum, tiles_x,
-                num_tiles, cap_total, fast_grad):
+                tile_lo, meta, starts, ends, perm, emit_cum, tiles_x, t_out,
+                num_tiles, cap, cap_total, fast_grad):
+        if starts.shape[0] != t_out or gid_sorted.shape[0] != cap:
+            raise ValueError(f"expected {t_out} tile ranges and {cap} slots, got {starts.shape[0]} and "
+                             f"{gid_sorted.shape[0]}")
         fields = _build_fields_packed(
             table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tiles_x,
             num_tiles, cap_total,
@@ -242,16 +253,28 @@ class BlendGaussiansPacked(torch.autograd.Function):
                                              compensated=not fast_grad)
         else:
             d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not fast_grad)
-        return (d_table,) + (None,) * 14
+        return (d_table,) + (None,) * 16
 
 
 def blend_gaussians_packed(table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
                            tile_lo, meta, starts, ends, perm, emit_cum,
-                           tiles_x: int, num_tiles: int, cap_total: int,
-                           fast_grad: bool) -> torch.Tensor:
+                           tiles_x: int, t_out: int, num_tiles: int, cap: int,
+                           cap_total: int, fast_grad: bool) -> torch.Tensor:
+    """Packed stage + alpha-composite: (t_out, OUT_ROWS, PIX) blocks, block
+    i for global tile meta[1] + i.
+
+    t_out: the out block count, num_tiles when unsharded, this device's
+      tile slice under tile sharding. num_tiles: the GLOBAL tile count (the
+      staging's dead-lane domain). cap: the slots of this call's sorted
+      array (its execution capacity when unsharded, the routed array's
+      cap_local under sharding). cap_total: the global slot domain that
+      keys the pre-sort slots. meta = [chunks_exec, tile_start, tile_end,
+      cap_total] int32; perm is None under sharding (and for an inference
+      binning), where the backward reduces by pre-sort slot keys; emit_cum
+      is binning.emit_cum."""
     return BlendGaussiansPacked.apply(
         table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tile_lo, meta,
-        starts, ends, perm, emit_cum, tiles_x, num_tiles, cap_total, fast_grad,
+        starts, ends, perm, emit_cum, tiles_x, t_out, num_tiles, cap, cap_total, fast_grad,
     )
 
 
@@ -343,6 +366,8 @@ def render(
         binning.emit_cum,
         settings.tiles_x,
         settings.num_tiles,
+        settings.num_tiles,
+        exec_cap,
         cap,
         settings.fast_grad,
     )

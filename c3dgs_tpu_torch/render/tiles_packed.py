@@ -8,7 +8,16 @@ from one to the other. Both families take the staged sorted fields of
 rasterizer._build_fields_packed plus the binning's tile_lo / meta /
 starts / ends.
 
-The forward returns (T, OUT_ROWS, PIX) blocks: rows 0-2 color without
+meta = [chunks_exec, tile_start, tile_end, cap] int32 stays on the
+device: the kernels read it there. A single-device render passes the
+tile range [0, T); under tile sharding (parallel/sharded.py) the fields
+are one device's routed array, starts/ends hold its owned tiles' slot
+ranges, and block i is global tile tile_start + i (t_out = len(starts)
+blocks; those at or past tile_end, the last device's padding tiles, are
+left unwritten by the kernels and zero in the plain versions). tile_lo
+is numbered globally.
+
+The forward returns (t_out, OUT_ROWS, PIX) blocks: rows 0-2 color without
 background, 3 exp(lt_final), 4 lt_final, 5 the freeze start slot (meta[3]
 if never frozen), 6-7 zero. The backward takes those blocks and the
 cotangent blocks (rows 0-2 dL/dC, 3 dL/dT_final) and returns (NUM_FIELDS,
@@ -44,7 +53,7 @@ FORWARD_KERNEL = kernels.register(
             ctypes.c_void_p,  # ends
             ctypes.c_void_p,  # meta
             ctypes.c_void_p,  # out
-            ctypes.c_int,  # num_tiles
+            ctypes.c_int,  # t_out (blocks)
             ctypes.c_void_p,  # stream
         ),
         replaces="c3dgs_tpu/render/tiles_packed.py:149",
@@ -65,7 +74,7 @@ BACKWARD_KERNEL = kernels.register(
             ctypes.c_void_p,  # totals (K1's blocks)
             ctypes.c_void_p,  # grad_out (cotangent blocks)
             ctypes.c_void_p,  # grads out (zero-initialized)
-            ctypes.c_int,  # num_tiles
+            ctypes.c_int,  # t_out (blocks)
             ctypes.c_void_p,  # stream
         ),
         replaces="c3dgs_tpu/render/tiles_packed.py:353",
@@ -74,7 +83,7 @@ BACKWARD_KERNEL = kernels.register(
 
 
 def _check(fields, tile_lo, meta, starts, ends) -> int:
-    """Validate the kernel's inputs; returns the tile count."""
+    """Validate the kernel's inputs; returns the out block count t_out."""
     if (TILE_X, TILE_Y) != (32, 16):
         raise NotImplementedError(
             f"the packed kernels support 32x16 tiles only, got {TILE_X}x{TILE_Y}"
@@ -95,34 +104,25 @@ def _check(fields, tile_lo, meta, starts, ends) -> int:
         raise ValueError("tile_lo must hold exec_cap/128 + 1 entries and meta 4")
     if dev.type == "cuda" and fields.data_ptr() % 16:
         raise ValueError("fields must be 16-byte aligned: the kernels stage them with bulk copies")
-    num_tiles = starts.shape[0]
+    t_out = starts.shape[0]
     if starts.ndim != 1 or ends.shape != starts.shape:
-        raise ValueError("starts and ends must be (T,)")
-    return num_tiles
-
-
-def _check_tile_range(meta_host, num_tiles: int) -> None:
-    if (meta_host[1], meta_host[2]) != (0, num_tiles):
-        raise NotImplementedError(
-            f"tile-sharded rendering (tile range {meta_host[1]}..{meta_host[2]} of "
-            f"{num_tiles}) arrives with the port's multi-device slice"
-        )
+        raise ValueError("starts and ends must be (t_out,)")
+    return t_out
 
 
 def forward(fields, tile_lo, meta, starts, ends) -> torch.Tensor:
-    """Packed forward compositing: (T, OUT_ROWS, PIX) tile blocks.
+    """Packed forward compositing: (t_out, OUT_ROWS, PIX) tile blocks,
+    block i for global tile meta[1] + i (t_out = len(starts)).
 
-    meta = [chunks_exec, tile_start, tile_end, cap] int32; the tile range
-    must be [0, T). CUDA tensors launch K1 (or raise); CPU tensors run
-    forward_plain."""
-    num_tiles = _check(fields, tile_lo, meta, starts, ends)
+    meta = [chunks_exec, tile_start, tile_end, cap] int32 on the fields'
+    device, never read on the host here. CUDA tensors launch K1 (or raise);
+    CPU tensors run forward_plain."""
+    t_out = _check(fields, tile_lo, meta, starts, ends)
     if fields.device.type == "cpu":
         return forward_plain(fields, tile_lo, meta, starts, ends)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
-    # one small device->host read: the kernel has no tile-sharding mode
-    _check_tile_range(meta.tolist(), num_tiles)
-    out = torch.empty((num_tiles, OUT_ROWS, PIX), dtype=torch.float32, device=fields.device)
+    out = torch.empty((t_out, OUT_ROWS, PIX), dtype=torch.float32, device=fields.device)
     launch(fields, meta, starts, ends, out)
     return out
 
@@ -156,7 +156,9 @@ def forward_plain(
     algorithm independent of the kernel's per-tile walk.
 
     One aligned 128-slot chunk at a time, vectorized over (PIX, CHUNK):
-    lanes group by tid - tile_lo[c]; each lane's in-group exclusive prefix
+    lanes group by tid - lo, lo = max(tile_lo[c], tile_start) (the tiles
+    flushing in the chunk are clamped to the range, and lanes of tiles
+    outside it are dead); each lane's in-group exclusive prefix
     of log(1-alpha) is a float64 cumsum taken from its group's head; group 0
     takes the open tile's carried color and lt; groups 0..ng-1 flush at
     their sentinels; the trailing group becomes the carry. Between chunks,
@@ -165,14 +167,12 @@ def forward_plain(
 
     `stats`, if given, accumulates the work counts of `_count_pairs` that
     this data needs. Unflushed tiles of a clamped frame are zero here."""
-    num_tiles = _check(fields, tile_lo, meta, starts, ends)
-    meta_host = meta.tolist()
-    _check_tile_range(meta_host, num_tiles)
-    nchunks, _, tile_end, cap = meta_host
+    t_out = _check(fields, tile_lo, meta, starts, ends)
+    nchunks, tile_start, tile_end, cap = meta.tolist()
     lo_all = tile_lo.tolist()
     dev = fields.device
     f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.zeros((num_tiles, OUT_ROWS, PIX), **f32)
+    out = torch.zeros((t_out, OUT_ROWS, PIX), **f32)
     pix = torch.arange(PIX, device=dev)
     px = (pix % TILE_X).to(torch.float32)[:, None]  # (PIX, 1) tile-local
     py = (pix // TILE_X).to(torch.float32)[:, None]
@@ -181,8 +181,8 @@ def forward_plain(
     carry_lt = torch.zeros(PIX, **f32)
     frz = -1
     for c in range(nchunks):
-        lo, hi = lo_all[c], lo_all[c + 1]
-        ng = hi - lo
+        lo, hi = max(lo_all[c], tile_start), min(lo_all[c + 1], tile_end)
+        ng = max(hi - lo, 0)
         if ng == 0 and float(carry_lt.max()) < LOG_EXIT_T:
             if frz < 0:
                 frz = c * CHUNK
@@ -190,7 +190,7 @@ def forward_plain(
         f = fields[:, c * CHUNK : (c + 1) * CHUNK]
         tid = f[TID_ROW]
         grp = tid - float(lo)
-        dead = tid >= float(tile_end)
+        dead = (tid >= float(tile_end)) | (tid < float(tile_start))
         if frz >= 0:
             dead = dead | (grp == 0)
         op = torch.where(dead, torch.zeros_like(f[5]), f[5])
@@ -227,10 +227,11 @@ def forward_plain(
             frz_f = torch.full((ng, PIX), float(cap), **f32)
             if frz >= 0:
                 frz_f[0] = float(frz)
-            out[lo:hi, 0:3] = col_f
-            out[lo:hi, 3] = torch.exp(lt_f)
-            out[lo:hi, 4] = lt_f
-            out[lo:hi, 5] = frz_f
+            blocks = slice(lo - tile_start, hi - tile_start)  # local numbering
+            out[blocks, 0:3] = col_f
+            out[blocks, 3] = torch.exp(lt_f)
+            out[blocks, 4] = lt_f
+            out[blocks, 5] = frz_f
             carry_c, carry_lt, frz = col[ng], ltg[ng], -1
         else:
             carry_c = carry_c + col[0]
@@ -247,14 +248,13 @@ def backward(fields, tile_lo, meta, starts, ends, totals, grad_out) -> torch.Ten
     modes: fast_grad only drops the compensation of the reduction that
     follows. CUDA tensors launch K2 (or raise); CPU tensors run
     backward_plain."""
-    num_tiles = _check(fields, tile_lo, meta, starts, ends)
+    t_out = _check(fields, tile_lo, meta, starts, ends)
     grad_out = grad_out.contiguous()
-    _check_blocks(totals, grad_out, num_tiles, fields.device)
+    _check_blocks(totals, grad_out, t_out, fields.device)
     if fields.device.type == "cpu":
         return backward_plain(fields, tile_lo, meta, starts, ends, totals, grad_out)
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
-    _check_tile_range(meta.tolist(), num_tiles)
     grads = torch.zeros((NUM_FIELDS, fields.shape[1]), dtype=torch.float32, device=fields.device)
     launch_backward(fields, meta, starts, ends, totals, grad_out, grads)
     return grads
@@ -330,7 +330,10 @@ def backward_plain(
     algorithm independent of the kernel's per-tile walk.
 
     Aligned 128-slot chunks in REVERSE, vectorized over (PIX, CHUNK):
-    lanes group by tid - tile_lo[c]; groups 0..ng-1 flush in this chunk and
+    lanes group by tid - lo, lo = max(tile_lo[c], tile_start), with the
+    flushing tiles clamped to the range, lanes outside it dead and the
+    blocks in local numbering (as in forward_plain); groups 0..ng-1 flush
+    in this chunk and
     start from their tile's lt_final (K1 row 4) with an empty suffix, the
     trailing group ng continues the carried walk (lt and the suffix S of
     the later chunks). Within a group the entering log-transmittance and
@@ -343,14 +346,13 @@ def backward_plain(
 
     `stats`, if given, accumulates the counts of `_count_pairs` and of
     `_count_live_groups`."""
-    num_tiles = _check(fields, tile_lo, meta, starts, ends)
+    t_out = _check(fields, tile_lo, meta, starts, ends)
     grad_out = grad_out.contiguous()
-    _check_blocks(totals, grad_out, num_tiles, fields.device)
-    meta_host = meta.tolist()
-    _check_tile_range(meta_host, num_tiles)
-    nchunks, _, tile_end, cap = meta_host
+    _check_blocks(totals, grad_out, t_out, fields.device)
+    nchunks, tile_start, tile_end, cap = meta.tolist()
     lo_all = tile_lo.tolist()
-    n_flushed = lo_all[nchunks]
+    # flushed tiles, counted in local numbering from tile_start
+    n_flushed = min(max(lo_all[nchunks], tile_start), tile_end) - tile_start
     dev = fields.device
     f32 = dict(dtype=torch.float32, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -373,8 +375,8 @@ def backward_plain(
     carry_lt = torch.zeros(PIX, **f64)
     carry_s = torch.zeros(PIX, **f64)
     for c in range(nchunks - 1, -1, -1):
-        lo, hi = lo_all[c], lo_all[c + 1]
-        ng = hi - lo
+        lo, hi = max(lo_all[c], tile_start), min(lo_all[c + 1], tile_end)
+        ng = max(hi - lo, 0)
         if ng == 0 and c * CHUNK >= open_frz:
             continue
         f = fields[:, c * CHUNK : (c + 1) * CHUNK]
@@ -382,12 +384,13 @@ def backward_plain(
         grp = torch.clamp(tid - float(lo), 0, ng).long()
         slot = (c * CHUNK + lane).to(torch.float32)
         # per-group tables: flushed groups 0..ng-1, then the open tile
-        g_gc = torch.cat([gc_all[lo:hi], open_gc[None]])  # (ng+1, 3, PIX)
-        g_gtt = torch.cat([gtt_all[lo:hi], open_gtt[None]])  # (ng+1, PIX)
-        g_lt = torch.cat([lt_all[lo:hi].double(), carry_lt[None]])
+        blocks = slice(lo - tile_start, hi - tile_start)  # local numbering
+        g_gc = torch.cat([gc_all[blocks], open_gc[None]])  # (ng+1, 3, PIX)
+        g_gtt = torch.cat([gtt_all[blocks], open_gtt[None]])  # (ng+1, PIX)
+        g_lt = torch.cat([lt_all[blocks].double(), carry_lt[None]])
         g_s = torch.cat([torch.zeros((ng, PIX), **f64), carry_s[None]])
-        g_frz = torch.tensor(frz_all[lo:hi] + [open_frz], **f32)
-        dead = (tid >= float(tile_end)) | (slot >= g_frz[grp])
+        g_frz = torch.tensor(frz_all[blocks] + [open_frz], **f32)
+        dead = (tid >= float(tile_end)) | (tid < float(tile_start)) | (slot >= g_frz[grp])
         op = torch.where(dead, torch.zeros_like(f[5]), f[5])
         dx = f[0] - px  # (PIX, CHUNK)
         dy = f[1] - py
@@ -430,13 +433,15 @@ def backward_plain(
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
         grads[:NUM_USED_FIELDS, sl] = rows
         if n_flushed:  # row 9: the pre-sort slot of every slot a tile's walk covers
-            t_safe = torch.clamp(tid.long(), max=n_flushed - 1)
-            walked = (tid < float(n_flushed)) & (slot.double() < walk_end[t_safe])
+            t_loc = tid.long() - tile_start
+            t_safe = torch.clamp(t_loc, 0, n_flushed - 1)
+            walked = (t_loc >= 0) & (t_loc < n_flushed) & (slot.double() < walk_end[t_safe])
             grads[NUM_USED_FIELDS, sl] = torch.where(walked, f[OFFSET_ROW], torch.zeros_like(f[OFFSET_ROW]))
         # carries for chunk c-1, whose open tile is this chunk's group 0
         carry_lt = pre64[:, 0]
         g0 = (grp == 0).to(torch.float64)
         carry_s = (gwc64 * g0).sum(1) + (carry_s if ng == 0 else 0.0)
         if ng >= 1:
-            open_gc, open_gtt, open_frz = gc_all[lo], gtt_all[lo], frz_all[lo]
+            l0 = lo - tile_start
+            open_gc, open_gtt, open_frz = gc_all[l0], gtt_all[l0], frz_all[l0]
     return grads

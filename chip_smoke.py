@@ -112,7 +112,20 @@ Phases (any failed check raises, and the script exits non-zero):
      20,000-point subset from one scene, card against CPU (kNN indices
      equal, rows at 1e-6); LPIPS (VGG and AlexNet, seeded random weights)
      at 1920x1080 card against CPU at rtol 1e-4, ms per call;
- 20. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
+ 20. multi-device on the one card (c3dgs_tpu_torch.parallel): 8 ranks
+     spawned on cuda:0 with the gloo backend (NCCL refuses two ranks on
+     one device), each loading the scenes the parent wrote as npz; the
+     reference gate of __graft_entry__.py::dryrun_multichip (50,000
+     splats at 512x256: the xyz gradient of vdot(w, image) sharded at
+     dp2xtiles4, dp1xtiles8 and dp4xtiles2 against single-device, bar
+     1e-4 relative, route_dropped 0; one hybrid step's loss against
+     train_step's), then the 300k bench frame (the dp1xtiles8 image
+     within atol 1e-5 of render_full, the 7 exact L1 gradients and a
+     dp2xtiles4 hybrid step's gradients within 1e-4 relative of
+     single-device, the replicas bitwise equal after the step); every
+     rank's K1/K2 launches held to its calls; ranks 3 and 4 hold their
+     tile-range K1/K2 against the plain versions;
+ 21. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
      status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
@@ -120,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -441,6 +455,25 @@ def compare_k1(name, args, stats=None):
     return err, len(mismatched), out_k, out_p
 
 
+def bench_settings(scene):
+    """The 1920x1080 bench frame's settings with bench.py's probe-exact
+    buckets: the slot bucket of the frame's instances plus one sentinel per
+    tile, the execution bucket of its grad_total."""
+    settings = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    with torch.no_grad():
+        probe = trainer.render_scene(scene, ev, CapacityPolicy().apply(settings), bg, device=DEVICE)
+        need, grad_need = int(probe["num_instances"]), int(probe["grad_total"])
+        policy = CapacityPolicy(initial=need + settings.num_tiles, grad_initial=grad_need)
+        settings = policy.apply(settings)
+        chk = trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
+    assert int(chk["overflow"]) == 0 and int(chk["grad_overflow"]) == 0, "bench frame degraded"
+    log(f"  bench frame: {need} instances -> slot bucket {settings.instance_capacity}; "
+        f"grad_total {grad_need} -> execution bucket {settings.grad_capacity}; culled {int(chk['culled'])}")
+    return settings
+
+
 def phase_k1(scene, card_clock_mhz):
     log("== phase 3: K1 against its plain version")
     freeze = freeze_scenes()
@@ -456,17 +489,8 @@ def phase_k1(scene, card_clock_mhz):
     compare_k1("long-tile scene 64x48", staged_inputs(t(means), t(cov), t(opacity), ev, small, colors=t(colors)))
 
     # the bench frame, with bench.py's probe-exact buckets
-    settings = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
-    bg = torch.zeros(3, device=DEVICE)
+    settings = bench_settings(scene)
     with torch.no_grad():
-        probe = trainer.render_scene(scene, ev, CapacityPolicy().apply(settings), bg, device=DEVICE)
-        need, grad_need = int(probe["num_instances"]), int(probe["grad_total"])
-        policy = CapacityPolicy(initial=need + settings.num_tiles, grad_initial=grad_need)
-        settings = policy.apply(settings)
-        chk = trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
-        assert int(chk["overflow"]) == 0 and int(chk["grad_overflow"]) == 0, "bench frame degraded"
-        log(f"  bench frame: {need} instances -> slot bucket {settings.instance_capacity}; "
-            f"grad_total {grad_need} -> execution bucket {settings.grad_capacity}; culled {int(chk['culled'])}")
         deg = trainer.settings_with_degree(settings, scene.active_sh_degree)
         prep = preprocess(scene.get_xyz(), scene.get_covariance(), scene.get_opacity()[:, 0], ev, deg,
                           scene.get_features())
@@ -807,13 +831,17 @@ def phase_k2(ctx, clock_mhz):
     plain_ms = host_ms(lambda: tiles_packed.backward_plain(*args, totals, g))
 
     # the reduction after K2: d_table per column against a float64
-    # index_add over the emitted positions, both fast_grad modes
+    # index_add over every emission whose sorted slot lies in the execution
+    # bucket (the emissions, culled ones included, outnumber its slots),
+    # both fast_grad modes
     b = ctx.b
     rows = got.shape[1]
     total = int(b.emit_cum[-1])
-    perm = b.perm[:rows].long()
-    pos = torch.arange(rows, device=DEVICE)
+    perm = b.perm.long()
+    pos = torch.arange(perm.shape[0], device=DEVICE)
     keep = (pos < total) & (perm < rows)
+    log(f"  {total} emissions over an execution bucket of {rows} slots; {int(keep[rows:].sum())} kept ones lie "
+        f"past index {rows} of the permutation")
     owner = torch.searchsorted(b.emit_cum.long(), pos, right=True)
     d_pre = got[:9].T.double()[torch.clamp(perm, max=rows - 1)]
     ref = torch.zeros((b.emit_cum.shape[0], 9), dtype=torch.float64, device=DEVICE)
@@ -2149,6 +2177,284 @@ def phase_pose(scene, cams, compressed, width=1920, height=1080):
     return total
 
 
+# ---------------------------------------------- multi-device (phase 20)
+MP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mp"
+MP_WORLD = 8
+MP_TIMEOUT_S = 300  # every collective of a rank; a hung one fails the run
+MP_GEOMETRIES = ((2, 4), (1, 8), (4, 2))  # __graft_entry__.py:132-134
+DRYRUN_N = 50_000  # __graft_entry__.py:70
+SCENE_FIELDS = ("xyz", "opacity", "scaling_factor", "active", "features_dc", "features_rest", "scaling", "rotation")
+
+
+def dryrun_scene():
+    """__graft_entry__.py::dryrun_multichip's scene: 50,000 splats, 80% of
+    them in a tight off-centre cluster, the rest spread wide, scales
+    halved (the same numpy draws)."""
+    n = DRYRUN_N
+    rng = np.random.default_rng(3)
+    tight = rng.normal(size=(n * 4 // 5, 3)).astype(np.float32) * 0.25
+    tight[:, 0] += 1.0
+    wide = rng.normal(size=(n - tight.shape[0], 3)).astype(np.float32) * 2.0
+    pts = np.concatenate([tight, wide])
+    pts[:, 2] += 4.0
+    cols = rng.random(size=(n, 3)).astype(np.float32)
+    scene = gaussians.from_point_cloud(pts, cols, capacity=n, quantization=False, device=DEVICE)
+    with torch.no_grad():
+        scene.scaling_factor += math.log(0.5)
+    return scene
+
+
+def save_scene(scene, path: Path) -> dict:
+    """The scene's leaves to an npz the ranks load; returns what
+    scene_from_numpy needs besides them."""
+    np.savez(path, **{k: getattr(scene, k).detach().cpu().numpy() for k in SCENE_FIELDS
+                      if getattr(scene, k) is not None})
+    return dict(path=str(path), max_sh_degree=scene.max_sh_degree, active_sh_degree=scene.active_sh_degree,
+                quantization=scene.quantization, use_factor_scaling=scene.use_factor_scaling)
+
+
+def load_scene(spec: dict):
+    with np.load(spec["path"]) as z:
+        leaves = {k: z[k] if k in z.files else None for k in SCENE_FIELDS}
+    return gaussians.scene_from_numpy(leaves, device=DEVICE,
+                                      **{k: v for k, v in spec.items() if k != "path"})
+
+
+def rel_err(got, ref) -> float:
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-12)
+
+
+def mp_rank(rank: int, cfg: dict) -> None:
+    """One rank of phase 20: gloo on the card the parent uses, the result
+    as JSON under MP_DIR (an exception ends the rank, and the parent's
+    spawn raises it)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(cfg["store"], cfg["world"]), rank=rank,
+                            world_size=cfg["world"], timeout=datetime.timedelta(seconds=MP_TIMEOUT_S))
+    try:
+        out = mp_work(rank, cfg)
+        (MP_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mp_work(rank: int, cfg: dict) -> dict:
+    """Phase 20 on this rank: (a) the reference gate of
+    __graft_entry__.py::dryrun_multichip, (b) the bench frame through
+    render_tile_sharded and the hybrid step, every K1/K2 launch held to the
+    calls that make it; then, outside the counted path, this rank's
+    tile-range K1 and K2 timed (and, on cfg["compare_ranks"], held against
+    their plain versions)."""
+    from c3dgs_tpu_torch.parallel import make_hybrid_train_step, make_mesh, render_tile_sharded, sharded
+    from c3dgs_tpu_torch.render.binning import bin_gaussians_routed
+    from c3dgs_tpu_torch.render.preprocess import Preprocessed
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    opt = OptimizationParams()
+    res = {"rank": rank}
+    calls = [0, 0]  # the K1 and K2 launches the calls below make
+
+    def made(k1, k2):
+        calls[0] += k1
+        calls[1] += k2
+
+    kernels.reset_counts()
+    meshes = {g: make_mesh(*g) for g in MP_GEOMETRIES}
+    res["coords"] = {f"dp{g[0]}xtiles{g[1]}": (m.dp.index, m.tiles.index) for g, m in meshes.items()}
+
+    # (a) the reference gate: 512x256, SH 0, the xyz gradient of vdot(w,
+    # image) in exact mode, sharded at 2^18 slots against single-device
+    s50 = load_scene(cfg["dryrun"])
+    base = RasterSettings(width=512, height=256, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45), sh_degree=0,
+                          instance_capacity=1 << 17)
+    exact = dataclasses.replace(base, fast_grad=False)
+    exact_par = dataclasses.replace(exact, instance_capacity=1 << 18)
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    w = torch.as_tensor(np.random.default_rng(5).normal(size=(3, 256, 512)).astype(np.float32), device=DEVICE)
+    (g1,) = torch.autograd.grad(torch.sum(w * trainer.render_scene(s50, ev, exact, bg, device=DEVICE)["render"]),
+                                s50.xyz)
+    made(1, 1)
+    res["gate"] = {}
+    for g, mesh in meshes.items():
+        img, diag = render_tile_sharded(s50, ev, exact_par, bg, mesh, return_diag=True)
+        (gs,) = torch.autograd.grad(torch.sum(w * img), s50.xyz)
+        made(1, 1)
+        res["gate"][f"dp{g[0]}xtiles{g[1]}"] = (rel_err(gs, g1), int(diag["shard_route_dropped"]))
+    # one hybrid step at dp2 x tiles4, 2^17, against a single-device train_step
+    gts = np.zeros((2, 3, 256, 512), np.float32)
+    state = trainer.create_train_state(load_scene(cfg["dryrun"]), opt, 1.0, device=DEVICE)
+    state, m = make_hybrid_train_step(meshes[(2, 4)], base, opt, 1.0)(state, np.stack([EV_ID] * 2), gts, bg)
+    state1 = trainer.create_train_state(load_scene(cfg["dryrun"]), opt, 1.0, device=DEVICE)
+    _, m1 = trainer.train_step(state1, ev, gts[0], base, bg, opt, 1.0, device=DEVICE)
+    made(2, 2)
+    res["gate_step"] = (float(m["loss"]), float(m1["loss"]), int(m["shard_route_dropped"]))
+
+    # (b) the bench frame: 300k splats, SH 3, 1920x1080, probe-exact buckets
+    scene = load_scene(cfg["bench"])
+    st = RasterSettings(**cfg["bench_settings"])
+    ex = dataclasses.replace(st, fast_grad=False)
+    mesh18, mesh24 = meshes[(1, 8)], meshes[(2, 4)]
+    deg = trainer.settings_with_degree(st, scene.active_sh_degree)
+    with torch.no_grad():
+        prep = sharded._sharded_preprocess(scene.get_xyz(), scene.get_covariance(), scene.get_opacity()[:, 0],
+                                           scene.get_features(), ev, deg, mesh18.tiles)
+        rb = bin_gaussians_routed(Preprocessed(*(t.detach() for t in prep)), deg, mesh18.tiles)
+    res["layout"] = dict(t0=rb.t0, t1=rb.t1, instances=int((~rb.sent_sorted).sum()),
+                         cap_local=rb.gid_sorted.shape[0], chunks_exec=int(rb.chunks_exec),
+                         route_dropped=int(rb.route_dropped))
+    policy = CapacityPolicy(initial=st.instance_capacity, grad_initial=st.grad_capacity)
+    with torch.no_grad():
+        single = metrics.render_full(scene, ev, st, bg, policy=policy, device=DEVICE)
+        img, diag = render_tile_sharded(scene, ev, st, bg, mesh18, return_diag=True)
+    made(single["renders"] + 1, 0)
+    res["bench_image"] = (float((img - single["render"]).abs().max()), int(diag["shard_route_dropped"]),
+                          int(single["overflow"]))
+    params = trainer.scene_params(scene)
+    zeros = torch.zeros((3, st.height, st.width), device=DEVICE)
+    g_sh = torch.autograd.grad(losses.l1_loss(render_tile_sharded(scene, ev, ex, bg, mesh18), zeros),
+                               list(params.values()))
+    g_1 = torch.autograd.grad(losses.l1_loss(trainer.render_scene(scene, ev, ex, bg, device=DEVICE)["render"],
+                                             zeros), list(params.values()))
+    made(2, 2)
+    res["bench_grads"] = {k: rel_err(a, b) for k, a, b in zip(params, g_sh, g_1)}
+    # the hybrid step on two orbit cameras; each camera's target is the
+    # other camera's render
+    evs = np.stack([orbit_extrinsic(-0.15), orbit_extrinsic(0.15)])
+    with torch.no_grad():
+        gts = torch.stack([trainer.render_scene(scene, e, st, bg, device=DEVICE)["render"] for e in evs[::-1]])
+    made(2, 0)
+    _, g_h, dropped_h = sharded.hybrid_loss_and_grads(mesh24, ex, opt, scene, evs, gts, bg)
+    total = sum(losses.photometric_loss(trainer.render_scene(scene, e, ex, bg, device=DEVICE)["render"], gt,
+                                        opt.lambda_dssim) for e, gt in zip(evs, gts)) / 2
+    g_2 = torch.autograd.grad(total, list(params.values()))
+    made(3, 3)
+    res["hybrid_grads"] = ({k: rel_err(g_h[k], b) for k, b in zip(params, g_2)}, int(dropped_h))
+    with torch.no_grad():
+        render_ms = host_ms(lambda: render_tile_sharded(scene, ev, st, bg, mesh18), reps=3)
+    made(3, 0)
+    state = trainer.create_train_state(scene, opt, 1.0, device=DEVICE)
+    step = make_hybrid_train_step(mesh24, ex, opt, 1.0)
+    step_ms = host_ms(lambda: step(state, evs, gts, bg), reps=1)
+    made(1, 1)
+    digest = hashlib.sha256()
+    for p in trainer.scene_params(state.scene).values():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    res["replica"] = digest.hexdigest()
+    got = launches()
+    res["launches"] = (got["tiles_packed_fwd"], got["tiles_packed_bwd"])
+    res["calls"] = tuple(calls)
+    res["render_ms"], res["step_ms"] = render_ms, step_ms
+
+    # outside the counted path: this rank's tile-range K1 and K2 at the
+    # bench frame (8 ranks share the card: correctness-run times only)
+    cap = deg.resolve_caps(scene.capacity)[0]
+    with torch.no_grad():
+        fields = rasterizer._build_fields_packed(
+            per_gaussian_table(prep, rb.offset), rb.gid_sorted, rb.tid_sorted, rb.sent_sorted, rb.j_sorted,
+            deg.tiles_x, deg.num_tiles, cap)
+    meta = torch.stack([rb.chunks_exec, *(torch.full_like(rb.chunks_exec, v) for v in (rb.t0, rb.t1, cap))])
+    args = (fields, rb.tile_lo, meta, rb.starts, rb.ends)
+    totals = tiles_packed.forward(*args)
+    g = torch.zeros_like(totals)
+    g[:, :4] = torch.as_tensor(np.random.default_rng(rank).normal(size=(totals.shape[0], 4, 512)),
+                               dtype=torch.float32, device=DEVICE)
+    buf = torch.zeros((16, fields.shape[1]), device=DEVICE)
+    out = torch.empty_like(totals)
+    res["k1_ms"] = cuda_ms(lambda: tiles_packed.launch(fields, meta, rb.starts, rb.ends, out), reps=10)
+    res["k2_ms"] = cuda_ms(lambda: tiles_packed.launch_backward(fields, meta, rb.starts, rb.ends, totals, g, buf),
+                           reps=10)
+    if rank in cfg["compare_ranks"]:
+        with contextlib.redirect_stdout(io.StringIO()):
+            k1_err = compare_k1("tile-range K1", args)[0]
+            k2_err = compare_k2("tile-range K2", args, totals, g)[0]
+        res["compare"] = (k1_err, k2_err)
+    res["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    res["seconds"] = time.perf_counter() - t_start
+    return res
+
+
+def phase_multi(scene, bench_settings, world=MP_WORLD):
+    """Phase 20: the multi-device path (c3dgs_tpu_torch.parallel) on the
+    one card, `world` gloo ranks sharing it. Returns the K1 and K2
+    launches of every rank's path."""
+    log(f"== phase 20: multi-device on one card: {world} gloo ranks on cuda:0 (NCCL refuses two ranks on one "
+        "device), the reference gate (__graft_entry__.py::dryrun_multichip) and the 300k bench frame")
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    MP_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    cfg = dict(
+        world=world,
+        store=str(MP_DIR / "store"),
+        dryrun=save_scene(dryrun_scene(), MP_DIR / "dryrun.npz"),
+        bench=save_scene(scene, MP_DIR / "bench.npz"),
+        bench_settings=dataclasses.asdict(bench_settings),
+        compare_ranks=(3, 4),
+    )
+    log(f"  the ranks load the scenes the parent wrote as numpy arrays ({MP_DIR.name}/dryrun.npz, bench.npz); "
+        f"kernels built by phase 1; setup {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    mp.start_processes(mp_rank, args=(cfg,), nprocs=world, join=True, start_method="spawn")
+    wall = time.perf_counter() - t1
+    ranks = [json.loads((MP_DIR / f"rank{r}.json").read_text()) for r in range(world)]
+
+    for name in ranks[0]["gate"]:
+        errs = [r["gate"][name][0] for r in ranks]
+        dropped = ranks[0]["gate"][name][1]
+        log(f"  gate {name}: xyz gradient relative max {max(errs):.3e} over the ranks; route_dropped {dropped}")
+        assert max(errs) < 1e-4 and dropped == 0, f"the gate at {name}: {errs}, dropped {dropped}"
+    loss, loss1, dropped = ranks[0]["gate_step"]
+    log(f"  gate hybrid step dp2xtiles4: loss {loss:.6f}, single-device train_step {loss1:.6f}; dropped {dropped}")
+    assert all(r["gate_step"] == ranks[0]["gate_step"] for r in ranks)
+    assert abs(loss - loss1) < 5e-4 * max(1.0, abs(loss1)) and dropped == 0
+    for r in ranks:
+        lay = r["layout"]
+        log(f"  rank {r['rank']} (dp, tiles) {r['coords']}: owns tiles {lay['t0']}..{lay['t1'] - 1} at "
+            f"dp1xtiles8, {lay['instances']} local instances, cap_local {lay['cap_local']}, chunks_exec "
+            f"{lay['chunks_exec']}; tile-range K1 {statistics.median(r['k1_ms']):.4f} ms, K2 "
+            f"{statistics.median(r['k2_ms']):.4f} ms (medians of 10); peak {r['peak_mb']:.0f} MiB; "
+            f"{r['seconds']:.1f} s")
+        assert lay["route_dropped"] == 0
+    err, dropped, overflow = ranks[0]["bench_image"]
+    log(f"  bench frame dp1xtiles8 vs render_full: max|err| {max(r['bench_image'][0] for r in ranks):.3e}; "
+        f"route_dropped {dropped}, single-device overflow {overflow}")
+    assert all(r["bench_image"][0] <= 1e-5 for r in ranks) and dropped == 0 and overflow == 0
+    bench_g = {k: max(r["bench_grads"][k] for r in ranks) for k in ranks[0]["bench_grads"]}
+    log("  bench L1 gradients dp1xtiles8 vs single-device (exact), relative max: "
+        + " ".join(f"{k} {v:.2e}" for k, v in bench_g.items()))
+    assert max(bench_g.values()) < 1e-4
+    hyb = {k: max(r["hybrid_grads"][0][k] for r in ranks) for k in ranks[0]["hybrid_grads"][0]}
+    log("  hybrid step dp2xtiles4 gradients vs the single-device 2-camera mean (exact), relative max: "
+        + " ".join(f"{k} {v:.2e}" for k, v in hyb.items()))
+    assert max(hyb.values()) < 1e-4 and all(r["hybrid_grads"][1] == 0 for r in ranks)
+    digests = {r["replica"] for r in ranks}
+    log(f"  replicas after the hybrid step: {len(digests)} distinct sha256 over {world} ranks")
+    assert len(digests) == 1, "the replicas differ after the hybrid step"
+    for r in ranks:
+        assert tuple(r["launches"]) == tuple(r["calls"]), (r["rank"], r["launches"], r["calls"])
+    k1 = sum(r["launches"][0] for r in ranks)
+    k2 = sum(r["launches"][1] for r in ranks)
+    log(f"  K1, K2 launches held to each rank's calls: {[tuple(r['launches']) for r in ranks]}; total {k1}, {k2}")
+    for r in ranks:
+        if "compare" in r:
+            log(f"  rank {r['rank']} tile-range K1 vs plain max abs err {r['compare'][0]:.3e}, K2 {r['compare'][1]:.3e}")
+    med = lambda key: statistics.median(statistics.median(r[key]) for r in ranks)
+    log(f"  ({world} ranks time-share one card and gloo stages through the host: correctness-run times, no "
+        f"scaling) tile-range K1 median over ranks {med('k1_ms'):.4f} ms, K2 {med('k2_ms'):.4f} ms; sharded "
+        f"render wall {med('render_ms'):.1f} ms, hybrid step wall {med('step_ms'):.1f} ms")
+    log(f"  phase 20: {wall:.1f} s for the ranks; card: {smi('name,power.limit')}")
+    return {"tiles_packed_fwd": k1, "tiles_packed_bwd": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -2192,6 +2498,9 @@ def main() -> int:
     pose_launches = phase_pose(scene, cams, compressed)
     k1["launches"] += pose_launches[k1["name"]]  # pose and joint steps, sensitivity, finetune, renders
     k2["launches"] += pose_launches[k2["name"]]  # pose and joint steps, sensitivity and finetune
+    multi = phase_multi(scene, settings)
+    k1["launches"] += multi[k1["name"]]  # every rank's sharded and reference renders and steps
+    k2["launches"] += multi[k2["name"]]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
     print(card, flush=True)

@@ -25,7 +25,7 @@ from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu_torch.render import oracle as toracle
 from c3dgs_tpu_torch.render import rasterizer as trast
 from c3dgs_tpu_torch.render import tiles_packed as ttiles
-from c3dgs_tpu_torch.render.binning import bin_gaussians
+from c3dgs_tpu_torch.render.binning import NUM_USED_FIELDS, bin_gaussians
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from test_torch_gpu import EV, SCENES, make_scene, render_grads
 from test_torch_render import _j, _t, k1_args, staged
@@ -130,6 +130,38 @@ def test_reducer_matches_jax_and_float64(compensated):
     np.testing.assert_allclose(dt[:, :9], ref, atol=1e-6)
 
 
+def test_reducer_keeps_emissions_past_a_tight_execution_bucket():
+    """An execution bucket at the frame's grad_total (bench.py's
+    probe-exact bucket; no grad_overflow): the emissions, culled ones
+    included, outnumber the bucket's slots. The port's reduction gathers
+    the whole permutation and equals a float64 index_add over every
+    emission whose sorted slot lies in the bucket. The reference's slices
+    the permutation to the bucket and drops the gradient of every emission
+    past that index (c3dgs_tpu/render/rasterizer.py:296; ROADMAP C): pinned
+    here."""
+    sc, kw = SCENES["wall"]()  # 1,951 emissions, 230 culled, 1,792 slots executed
+    _, _, _, _, b = staged(sc, kw)
+    need = int(b.chunks_exec) * 128
+    js, fields, tile_lo, meta, b = staged(sc, kw, grad_capacity=need)
+    rows = fields.shape[1]
+    perm, emit_cum = np.asarray(b.perm), np.asarray(b.emit_cum)
+    total = int(emit_cum[-1])
+    assert rows == need and int(meta[0]) * 128 <= rows < total  # no overflow, more emissions than slots
+    grads = (np.random.default_rng(2).normal(size=(16, rows)) * 0.05).astype(np.float32)
+    owner = np.searchsorted(emit_cum, np.arange(total), side="right")
+    pos = perm[:total]
+    inside = pos < rows
+    ref = np.zeros((len(emit_cum), 9))
+    np.add.at(ref, owner[inside], grads[:9, pos[inside]].T.astype(np.float64))
+    dt = trast._reduce_instance_grads_packed(torch.as_tensor(grads), _t(perm), _t(emit_cum), True).numpy()
+    np.testing.assert_allclose(dt[:, :9], ref, atol=1e-6)
+    lost = np.unique(owner[rows:][inside[rows:]])  # gaussians with a kept emission past index `rows`
+    assert len(lost) > 0
+    dj = np.asarray(jrast._reduce_instance_grads_packed(jnp.asarray(grads), b.perm, b.emit_cum, True))
+    assert np.abs(dj[lost, :9] - ref[lost]).max() > 1e-3  # the reference's loss
+    np.testing.assert_allclose(dj[: owner[rows - 1], :9], ref[: owner[rows - 1]], atol=1e-6)
+
+
 # ---------------------------------------------------------- full render
 def jax_grads(sc, kw, wimg, **over):
     js = JSettings(**kw, **over)
@@ -192,10 +224,26 @@ def test_render_gradients_match_port_oracle(scene):
         assert_normalized(b, a, GRAD_TOL, name)
 
 
-def test_exec_clamped_frame_gradients_match_jax():
+def _jax_reduce_every_emission(grads, perm, boundaries, compensated=False):
+    """c3dgs_tpu's _reduce_instance_grads_packed over the whole permutation
+    (the reference slices it to the execution bucket, rasterizer.py:296)."""
+    live, rows = NUM_USED_FIELDS, grads.shape[1]
+    d_pre = grads[:live].T[jnp.minimum(perm, rows - 1)]
+    idx = jnp.arange(perm.shape[0], dtype=jnp.int32)
+    d_pre = jnp.where(((idx < boundaries[-1]) & (perm < rows))[:, None], d_pre, 0.0)
+    seg = jrast._segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
+    return jnp.concatenate([seg, jnp.zeros((boundaries.shape[0], 16 - live), seg.dtype)], axis=1)
+
+
+def test_exec_clamped_frame_gradients_match_jax(monkeypatch):
     """The gradient half of tests/test_render.py:472: a clamped frame's
     gradients are finite and equal JAX's; a tight but sufficient bucket
-    gives the full frame's gradients."""
+    gives the full frame's gradients. Here 96 emissions past the bucket's
+    index (81 of them walked) have their slots inside it: JAX's training
+    reduction drops them from the gradient (ROADMAP C; pinned by
+    test_reducer_keeps_emissions_past_a_tight_execution_bucket), so the
+    JAX side reduces over the whole permutation (_jax_reduce_every_emission,
+    patched in for this test only)."""
     sc, kw = make_scene(250)
     full = dict(instance_capacity=1 << 13)
     wimg = np.random.default_rng(2).normal(size=(3, kw["height"], kw["width"])).astype(np.float32)
@@ -207,6 +255,7 @@ def test_exec_clamped_frame_gradients_match_jax():
     clamp = dict(full, grad_capacity=max(need - 512, 128))
     gt, out_c = port_grads(sc, kw, wimg, **clamp)
     assert int(out_c["grad_overflow"]) > 0
+    monkeypatch.setattr(jrast, "_reduce_instance_grads_packed", _jax_reduce_every_emission)
     gj = jax_grads(sc, kw, wimg, **clamp)
     for name, a, b in zip(NAMES, gj, gt):
         assert np.isfinite(b).all(), name

@@ -39,6 +39,7 @@ from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import dma_probe as tprobe
 from c3dgs_tpu_torch.tools import scenes
 from c3dgs_tpu_torch.train import finetune, trainer
+import torch_ranks
 
 EV = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # the reference's bar, tests/test_render.py:113
@@ -223,6 +224,138 @@ def test_k1_long_tiles_match_plain():
     torch.testing.assert_close(out_k[:, :5], out_p[:, :5], **K1_TOL)
     assert torch.equal(out_k[:, 5:], out_p[:, 5:])
     assert int((out_k[:, 5, 0] < float(args[2][3])).sum()) == 1
+
+
+# ------------------------------------------------------ the tile-range mode
+def routed_k1_inputs(sc, kw, device, size=4):
+    """Each rank's K1 inputs for the scene's routed arrays on a tiles axis
+    of `size` (torch_ranks.route_all: the ranks are threads), with its
+    RoutedBinning: (fields, tile_lo, meta, starts, ends), meta = [chunks_exec,
+    t0, t1, cap]."""
+    t = lambda x: None if x is None else torch.as_tensor(x, device=device)
+    settings = RasterSettings(**kw)
+    prep = preprocess(t(sc["means"]), t(sc["cov"]), t(sc["op"]), t(EV), settings, t(sc["shs"]), t(sc["colors"]))
+    cap, _ = settings.resolve_caps(sc["means"].shape[0])
+    out = []
+    for rb in torch_ranks.route_all(prep, settings, size):
+        fields = rasterizer._build_fields_packed(
+            per_gaussian_table(prep, rb.offset), rb.gid_sorted, rb.tid_sorted, rb.sent_sorted, rb.j_sorted,
+            settings.tiles_x, settings.num_tiles, cap,
+        )
+        meta = torch.stack([rb.chunks_exec, *(torch.full_like(rb.chunks_exec, v) for v in (rb.t0, rb.t1, cap))])
+        out.append(((fields, rb.tile_lo, meta, rb.starts, rb.ends), rb))
+    return out
+
+
+def test_routed_long_tile_blocks_match_single_device():
+    """The long-tile scene split 4 ways (tiles 0-1, 2-3, 4-5 and a rank of
+    padding tiles only), through the wrapper's CPU route: every owned
+    block equals the single-device block of its tile (rank 0's walk starts
+    at the same slot, so its freeze slots are equal too)."""
+    sc, kw = long_tile_scene()
+    full = tiles_packed.forward(*k1_inputs(sc, kw, "cpu"))
+    cap = RasterSettings(**kw).resolve_caps(sc["means"].shape[0])[0]
+    owned_total = 0
+    for d, (args, rb) in enumerate(routed_k1_inputs(sc, kw, "cpu")):
+        assert int(rb.route_dropped) == 0
+        out = tiles_packed.forward(*args)
+        owned = rb.t1 - rb.t0
+        assert out.shape == (2, 8, 512) and rb.t0 == 2 * d and owned == (0 if d == 3 else 2)
+        ref = full[rb.t0 : rb.t1]
+        torch.testing.assert_close(out[:owned, :5], ref[:, :5], **K1_TOL)
+        assert torch.equal(out[:owned, 5] < cap, ref[:, 5] < cap)
+        if d == 0:
+            assert torch.equal(out[:owned, 5], ref[:, 5])
+        assert not out[owned:].any()
+        owned_total += owned
+    assert owned_total == 6
+
+
+@pytest.mark.gpu
+def test_k1_k2_tile_range_match_plain():
+    """K1 and K2 in their tile-range mode on each routed rank's array of
+    the long-tile scene, against their plain versions: owned blocks' rows
+    0-4 at atol 2e-5 / rtol 1e-4 and rows 5-7 exact; gradient rows 0-8 at
+    normalized 5e-4 per row, rows 9-15 exact."""
+    _need_card()
+    sc, kw = long_tile_scene()
+    for d, (args, rb) in enumerate(routed_k1_inputs(sc, kw, "cuda")):
+        owned = rb.t1 - rb.t0
+        before = (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches)
+        out_k = tiles_packed.forward(*args)
+        out_p = tiles_packed.forward_plain(*args)
+        torch.testing.assert_close(out_k[:owned, :5], out_p[:owned, :5], **K1_TOL)
+        assert torch.equal(out_k[:owned, 5:], out_p[:owned, 5:])
+        g = torch.zeros_like(out_p)
+        g[:owned, :4] = torch.as_tensor(np.random.default_rng(d).normal(size=(owned, 4, 512)), dtype=torch.float32)
+        got = tiles_packed.backward(*args, out_p, g)
+        torch.cuda.synchronize()
+        assert (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = tiles_packed.backward_plain(*args, out_p, g)
+        for r in range(9):
+            assert_normalized(got[r], ref[r], GRAD_TOL, f"rank {d} row {r}")
+        assert torch.equal(got[9:], ref[9:])
+
+
+@pytest.mark.gpu
+def test_k1_k2_full_range_equals_split_ranges_bitwise():
+    """K1 and K2 over [0, T) against two calls with explicit ranges [0, k)
+    and [k, T) over the same array (starts/ends sliced): each CTA walks its
+    own tile, so the blocks and the gradient rows are bitwise equal."""
+    _need_card()
+    sc, kw = long_tile_scene()
+    fields, tile_lo, meta, starts, ends = k1_inputs(sc, kw, "cuda")
+    t, k = starts.shape[0], 3
+    full = tiles_packed.forward(fields, tile_lo, meta, starts, ends)
+    parts = []
+    for lo, hi in ((0, k), (k, t)):
+        m = meta.clone()
+        m[1], m[2] = lo, hi
+        parts.append((m, slice(lo, hi)))
+    split = torch.cat([tiles_packed.forward(fields, tile_lo, m, starts[sl], ends[sl]) for m, sl in parts])
+    assert torch.equal(split, full)
+    g = torch.zeros_like(full)
+    g[:, :4] = torch.as_tensor(np.random.default_rng(3).normal(size=(t, 4, 512)), dtype=torch.float32)
+    grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, full, g)
+    summed = sum(tiles_packed.backward(fields, tile_lo, m, starts[sl], ends[sl], full[sl], g[sl]) for m, sl in parts)
+    assert torch.equal(summed, grads)
+
+
+def card_render_payload():
+    pts, cols = torch_ranks.toy_points(300, seed=1)
+    scene = gaussians.from_point_cloud(pts, cols, capacity=320, quantization=False, device="cpu")
+    return dict(torch_ranks.port_leaves(scene), kw=torch_ranks.SET_KW, ev=EV, bg=np.array([0.1, 0.2, 0.3], np.float32),
+                w=np.random.default_rng(5).normal(size=(3, 32, 64)).astype(np.float32))
+
+
+def check_card_render(results):
+    for res in results:
+        assert res["dropped"] == 0 and res["launched"] == (1, 1)
+        np.testing.assert_allclose(res["img"], res["single"], atol=1e-5)
+        g, g1 = res["grad"], res["grad_single"]
+        assert np.abs(g - g1).max() / max(np.abs(g1).max(), 1e-12) < 1e-4
+        np.testing.assert_array_equal(res["img"], results[0]["img"])
+
+
+def test_tile_sharded_render_job_runs_on_cpu(tmp_path):
+    """The card test's 2-rank job through the plain versions: the sharded
+    image and its xyz gradient against the single-device render."""
+    results = torch_ranks.run(2, "card_render", card_render_payload(), tmp_path, device="cpu")
+    for res in results:
+        res["launched"] = (1, 1)  # CPU tensors launch no kernel
+    check_card_render(results)
+
+
+@pytest.mark.gpu
+def test_tile_sharded_render_two_ranks_on_card(tmp_path):
+    """render_tile_sharded on 2 gloo ranks sharing cuda:0 (the kernels
+    built first, once): the image at atol 1e-5 and the xyz gradient within
+    1e-4 (relative max) of the single-device render on the same card, each
+    rank launching K1 and K2 once."""
+    _need_card()
+    kernels.build(sorted({k.source for k in kernels.REGISTRY.values()}))
+    check_card_render(torch_ranks.run(2, "card_render", card_render_payload(), tmp_path, device="cuda"))
 
 
 @pytest.mark.gpu

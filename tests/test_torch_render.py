@@ -222,10 +222,17 @@ def test_k1_wrapper_checks_and_cpu_route():
     out = ttiles.forward(*args)
     assert ttiles.FORWARD_KERNEL.launches == before  # CPU tensors: plain version
     assert torch.equal(out, ttiles.forward_plain(*args))
+    # the tile-range mode on the same call: block i is global tile 1 + i,
+    # the block past tile_end stays zero, and with no tile frozen the
+    # range's blocks are the full call's tiles 1..T-1
     sharded = args.copy()
     sharded[2] = torch.tensor([int(meta[0]), 1, js.num_tiles, int(meta[3])], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttiles.forward(*sharded)
+    ranged = ttiles.forward(*sharded)
+    assert ttiles.FORWARD_KERNEL.launches == before
+    assert torch.equal(ranged, ttiles.forward_plain(*sharded))
+    assert bool((out[:, 5] == int(meta[3])).all())  # no tile froze
+    np.testing.assert_allclose(ranged[: js.num_tiles - 1].numpy(), out[1:].numpy(), atol=1e-6, rtol=1e-6)
+    assert not ranged[js.num_tiles - 1].any()
     bad = args.copy()
     bad[0] = bad[0].double()
     with pytest.raises(ValueError):

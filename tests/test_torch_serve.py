@@ -245,7 +245,8 @@ def test_package_imports_no_jax():
         "c3dgs_tpu_torch.tools.dma_probe, c3dgs_tpu_torch.compress.pipeline, c3dgs_tpu_torch.train.finetune, "
         "c3dgs_tpu_torch.models.io_npz, c3dgs_tpu_torch.models.io_ply, c3dgs_tpu_torch.data.scene, "
         "c3dgs_tpu_torch.train.checkpoint, c3dgs_tpu_torch.tools.datasets, c3dgs_tpu_torch.cli.train, "
-        "c3dgs_tpu_torch.cli.compress, c3dgs_tpu_torch.cli.render, c3dgs_tpu_torch.cli.metrics; "
+        "c3dgs_tpu_torch.cli.compress, c3dgs_tpu_torch.cli.render, c3dgs_tpu_torch.cli.metrics, "
+        "c3dgs_tpu_torch.parallel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'optax', 'c3dgs_tpu.')) "
         "or m == 'c3dgs_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
