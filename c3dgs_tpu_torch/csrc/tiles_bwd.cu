@@ -6,7 +6,7 @@
 // c3dgs_tpu/render/rasterizer.py:451). Same information in, the same
 // per-instance gradient rows out: the staged fields of
 // rasterizer._build_fields, the binning's tile_ids / starts / ends /
-// nchunks / grad_base, K3's (T, 8, 512) blocks (row 3 exp(lt_final), row 4
+// nchunks / grad_base, K3's (T, 8, PIX) blocks (row 3 exp(lt_final), row 4
 // lt_final, row 5 stop) and their cotangent (rows 0-2 dL/dC, row 3
 // dL/dT_final). Out is the zero-initialized (16, grad_cap) f32 buffer;
 // window w of tile t owns the 128 columns at grad_base[t] + w*128, clamped
@@ -30,7 +30,7 @@
 //   gwc   = w * (dL/dC . rgb)
 //   g_pow = gwc - (S + dL/dT_final * T_final) * alpha / (1 - alpha),
 //           0 where op*exp(power) > 0.99;   then S += gwc
-// and per lane the sums over the tile's 512 pixels: dL/drgb = sum dL/dC*w,
+// and per lane the sums over the tile's PIX pixels: dL/drgb = sum dL/dC*w,
 // s0 = sum g_pow, mx, my = sum g_pow*dx, g_pow*dy and the second moments;
 // g_x = 2a'mx + b'my, g_y = 2c'my + b'mx. Walked back to front, lt after a
 // window is its entering lt, lt_exit minus the window's sum (tiles.py:
@@ -83,6 +83,13 @@
 //     bytes) ran faster than 3 (80 registers) or 2; 47.7 KB of static
 //     shared memory each (the ring and the partials), below the 48 KB that
 //     would need a dynamic allocation, and 4 x 47.7 KB fit the SM's 228 KB.
+//
+// Other tile shapes (C3DGS_TILE_X/Y): as K2's (tiles_packed_bwd.cu), with
+// MIN_CTAS keeping 32 warps per SM (8 CTAs at 16x16, 7 of whose 29.1 KB
+// fit an SM; 2 at 32x32, 85 KB each with the partials in dynamic shared
+// memory). Below 128 threads a tile (16x8: 64) a thread writes two or more
+// of a window's 128 lanes; the grad layout grad_base[t] + w*128 does not
+// depend on PIX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,8 +102,8 @@ using namespace c3dgs;
 
 constexpr int STAGED = 10;  // x, y, a', b', c', opacity, r, g, b, pre-sort slot
 constexpr int PRESORT_ROW = 9;  // fields row holding the pre-sort slot
-constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
-constexpr int MIN_CTAS = 4;
+constexpr int MIN_CTAS = min_ctas(32);  // 4 CTAs of 8 warps at 32x16
+constexpr int DYNAMIC_BYTES = partial_dynamic_bytes(2 * STAGED * STAGE_W * 4);
 
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
@@ -109,7 +116,7 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
                  const float* __restrict__ gout, int tiles_x,
                  float* __restrict__ grads, long long gstride, int num_tiles) {
   __shared__ __align__(128) float sf[2][STAGED][STAGE_W];
-  __shared__ float part[WARPS * NSUM][PART_LD];  // row warp*9 + value
+  float(*part)[PART_LD] = partials<(DYNAMIC_BYTES > 0)>();  // row warp*9 + value
   __shared__ __align__(8) uint64_t bar[2];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
@@ -140,9 +147,10 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
   // windows the forward never blended: the tag row only
   for (int w = stop; w < nw; ++w) {
     const long long off = offset(w);
-    if (off >= 0 && tid < CHUNK) {
-      grads[PRESORT_ROW * gstride + off + tid] =
-          w * CHUNK + tid < count ? fields[PRESORT_ROW * stride + s + w * CHUNK + tid] : cap;
+    if (off < 0) continue;
+    for (int l = tid; l < CHUNK; l += THREADS) {  // once at THREADS >= 128
+      grads[PRESORT_ROW * gstride + off + l] =
+          w * CHUNK + l < count ? fields[PRESORT_ROW * stride + s + w * CHUNK + l] : cap;
     }
   }
   if (stop == 0) return;
@@ -215,8 +223,7 @@ tiles_bwd_kernel(const float* __restrict__ fields, long long stride,
     // one thread per lane of the window: the warps' partials in warp
     // order, then the lane's rows
     const long long off = offset(w);
-    if (off >= 0 && tid < CHUNK) {
-      const int l = tid;
+    for (int l = tid; off >= 0 && l < CHUNK; l += THREADS) {  // once at THREADS >= 128
       float* o = grads + off + l;
       if (base + l < end) {
         float sum[NSUM];
@@ -253,7 +260,7 @@ extern "C" {
 
 // fields: (16, stride) f32 staged sorted fields (rows 0-9 read), 16-byte
 // aligned with stride a multiple of 128; tile_ids/starts/ends/nchunks/
-// grad_base: (num_tiles,) i32; totals: K3's (num_tiles, 8, 512) f32 blocks;
+// grad_base: (num_tiles,) i32; totals: K3's (num_tiles, 8, PIX) f32 blocks;
 // gout: their cotangent, same shape; grads: (16, gstride) f32,
 // zero-initialized by the caller. Launches on `stream`; returns
 // cudaGetLastError() (0 when the launch was accepted).
@@ -262,8 +269,13 @@ int c3dgs_tiles_bwd(const float* fields, long long stride, const int* tile_ids,
                     const int* grad_base, const float* totals, const float* gout,
                     int tiles_x, float* grads, long long gstride, int num_tiles,
                     void* stream) {
+  if (DYNAMIC_BYTES > 0) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(tiles_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DYNAMIC_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (num_tiles > 0) {
-    tiles_bwd_kernel<<<num_tiles, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    tiles_bwd_kernel<<<num_tiles, THREADS, DYNAMIC_BYTES, static_cast<cudaStream_t>(stream)>>>(
         fields, stride, tile_ids, starts, ends, nchunks, grad_base, totals, gout,
         tiles_x, grads, gstride, num_tiles);
   }

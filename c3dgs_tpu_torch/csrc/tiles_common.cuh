@@ -8,6 +8,9 @@
 // (CHUNK); a per-tile window starts at any slot, so a per-tile stage is 4
 // slots wider (STAGE_W). kernels.library_path hashes this header into each
 // including library's name, so an edit here rebuilds all four.
+//
+// The tile shape comes from C3DGS_TILE_X / C3DGS_TILE_Y (kernels.py passes
+// render/types.py's constants; 32x16 when unset), one library per shape.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,11 +18,23 @@
 
 #include "bulk_copy.cuh"
 
+#ifndef C3DGS_TILE_X
+#define C3DGS_TILE_X 32
+#endif
+#ifndef C3DGS_TILE_Y
+#define C3DGS_TILE_Y 16
+#endif
+
 namespace c3dgs {
 
-constexpr int TILE_X = 32;
-constexpr int TILE_Y = 16;
+constexpr int TILE_X = C3DGS_TILE_X;
+constexpr int TILE_Y = C3DGS_TILE_Y;
 constexpr int PIX = TILE_X * TILE_Y;
+// the shapes render/types.py::kernel_shape_ok accepts
+static_assert(TILE_X > 0 && TILE_X % 8 == 0, "the tile width must be a multiple of 8 (8x4 pixel blocks)");
+static_assert(TILE_Y > 0 && TILE_Y % 4 == 0, "the tile height must be a multiple of 4 (8x4 pixel blocks)");
+static_assert(PIX % 64 == 0, "a tile must hold an even number of 8x4 blocks (two per warp)");
+static_assert(PIX <= 2048, "at most 1024 threads per tile (2 pixels each)");
 constexpr int CHUNK = 128;  // the global slot chunk (packed), a window (per-tile)
 constexpr int OUT_ROWS = 8;
 constexpr float STOP_T = 1e-4f;
@@ -42,15 +57,35 @@ constexpr int WARPS = THREADS / 32;
 // floats wide.
 constexpr int STAGE_W = CHUNK + 4;
 
-// Tile-local pixel index of pixel k (0 or 1) of thread `tid`. The tile is a
-// 4x4 grid of 8x4 blocks; lane = 8 columns x 4 rows of a block, and pixel k
-// of warp w is block 2w + k in Z order, so a warp owns a 16x4 region and
-// each (warp, k) slice of 32 pixels is one 8x4 block: the branches on alpha
-// diverge less than along a 32-pixel row.
+// Residency for __launch_bounds__: the CTAs of this shape that make up the
+// warps per SM a kernel was tuned for at 32x16 (at least one CTA).
+constexpr int min_ctas(int warps_per_sm) { return warps_per_sm / WARPS > 0 ? warps_per_sm / WARPS : 1; }
+
+// The pixel layout. The tile is a BLOCKS_X x BLOCKS_Y grid of 8x4 blocks;
+// lane = 8 columns x 4 rows of a block, and each (warp, k) slice of 32
+// pixels is one block, so the branches on alpha diverge less than along a
+// pixel row. A warp owns two blocks: side by side (a 16x4 region) where
+// the block columns pair up, else one above the other (8x8). The warps'
+// regions form a REGIONS_X x REGIONS_Y grid, numbered down bands of BAND
+// region rows, column by column within a band, band after band. At 32x16
+// that is the 4x4-block Z order: warp w's bits 0, 1, 2 give the region's
+// row bit 0, column, row bit 1 (w = 0: blocks 0-1 of block row 0, w = 1:
+// of block row 1, w = 2: blocks 2-3 of block row 0, ...).
+constexpr int BLOCKS_X = TILE_X / 8;
+constexpr int BLOCKS_Y = TILE_Y / 4;
+constexpr bool SIDE_BY_SIDE = BLOCKS_X % 2 == 0;
+constexpr int REGIONS_X = SIDE_BY_SIDE ? BLOCKS_X / 2 : BLOCKS_X;
+constexpr int REGIONS_Y = SIDE_BY_SIDE ? BLOCKS_Y : BLOCKS_Y / 2;
+constexpr int BAND = REGIONS_Y % 2 == 0 ? 2 : 1;
+static_assert(REGIONS_X * REGIONS_Y == WARPS, "one region per warp");
+
+// Tile-local pixel index of pixel k (0 or 1) of thread `tid`.
 __device__ __forceinline__ int pixel_index(int tid, int k) {
-  const int b = (tid >> 5) * PPT + k, lane = tid & 31;
-  const int bx = (b & 1) | ((b >> 1) & 2);
-  const int by = ((b >> 1) & 1) | ((b >> 2) & 2);
+  const int w = tid >> 5, lane = tid & 31;
+  const int rx = (w / BAND) % REGIONS_X;
+  const int ry = (w / (BAND * REGIONS_X)) * BAND + w % BAND;
+  const int bx = SIDE_BY_SIDE ? 2 * rx + k : rx;
+  const int by = SIDE_BY_SIDE ? ry : 2 * ry + k;
   return (by * 4 + (lane >> 3)) * TILE_X + bx * 8 + (lane & 7);
 }
 
@@ -128,6 +163,30 @@ __device__ __forceinline__ float alpha_of(float raw) { return raw >= MIN_ALPHA ?
 
 // ---------------------------------------------------------- backward (K2, K4)
 constexpr int NSUM = 9;  // rgb x3, s0, mx, my, mxx, mxy, myy
+constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
+constexpr int PART_FLOATS = WARPS * NSUM * PART_LD;  // row warp*9 + value, one column per slot
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+
+// Bytes of dynamic shared memory a backward kernel whose ring takes
+// `ring_bytes` launches with: 0 while the partials fit beside the ring in
+// static shared memory (32x16 and smaller tiles), the partials' bytes past
+// the 48 KB static limit (32x32: 74.3 KB of partials).
+constexpr int partial_dynamic_bytes(int ring_bytes) {
+  return ring_bytes + PART_FLOATS * 4 + 64 > STATIC_SMEM_LIMIT ? PART_FLOATS * 4 : 0;
+}
+
+// The backward kernels' per-slot partial sums, [WARPS * NSUM][PART_LD]:
+// static shared memory, or the launch's dynamic shared memory.
+template <bool DYNAMIC>
+__device__ __forceinline__ auto partials() -> float (*)[PART_LD] {
+  if constexpr (DYNAMIC) {
+    extern __shared__ __align__(16) float dynamic_part[];
+    return reinterpret_cast<float (*)[PART_LD]>(dynamic_part);
+  } else {
+    __shared__ float part[WARPS * NSUM][PART_LD];
+    return part;
+  }
+}
 
 // one step of the reduce-scatter: the lower half of each lane group keeps
 // lo, the upper half hi, each adding its partner's copy

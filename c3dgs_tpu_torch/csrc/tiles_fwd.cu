@@ -4,7 +4,7 @@
 // (forward_kernel, launched by pallas_call at
 // c3dgs_tpu/render/rasterizer.py:401). Same contract: the staged fields of
 // rasterizer._build_fields (global means) and the binning's per-tile
-// tile_ids / starts / ends / nchunks in, the same (T, 8, 512) f32 blocks
+// tile_ids / starts / ends / nchunks in, the same (T, 8, PIX) f32 blocks
 // out:
 //   rows 0-2  color without background
 //   row  3    exp(lt_final)
@@ -62,6 +62,9 @@
 //   - Residency chosen by measurement (chip_smoke.py's K3 time, PERF.md):
 //     4 CTAs of 8 warps per SM (at most 64 registers; ptxas spills a few
 //     bytes) ran faster than 3 or 2; 9.5 KB of shared memory each.
+//
+// Other tile shapes (C3DGS_TILE_X/Y): as K1's (tiles_packed_fwd.cu):
+// PIX/2 threads a tile, MIN_CTAS keeping 32 warps per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,7 +76,7 @@ namespace {
 using namespace c3dgs;
 
 constexpr int USED = 9;  // x, y, a', b', c', opacity, r, g, b
-constexpr int MIN_CTAS = 4;
+constexpr int MIN_CTAS = min_ctas(32);  // 4 CTAs of 8 warps at 32x16
 
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
 tiles_fwd_kernel(const float* __restrict__ fields, long long stride,
@@ -185,7 +188,7 @@ extern "C" {
 
 // fields: (16, stride) f32 staged sorted fields (rows 0-8 read), 16-byte
 // aligned with stride a multiple of 128; tile_ids/starts/ends/nchunks:
-// (num_tiles,) i32 (ends = sentinel slots); out: (num_tiles, 8, 512) f32.
+// (num_tiles,) i32 (ends = sentinel slots); out: (num_tiles, 8, PIX) f32.
 // Launches on `stream`; returns cudaGetLastError() (0 when the launch was
 // accepted).
 int c3dgs_tiles_fwd(const float* fields, long long stride, const int* tile_ids,

@@ -4,7 +4,7 @@
 // (backward_kernel, launched by pallas_call at
 // c3dgs_tpu/render/rasterizer.py:221). Same information in, the same
 // per-slot gradient rows out: the staged fields of
-// rasterizer._build_fields_packed, K1's (t_out, 8, 512) blocks (row 3
+// rasterizer._build_fields_packed, K1's (t_out, 8, PIX) blocks (row 3
 // exp(lt_final), row 4 lt_final, row 5 the freeze slot), the cotangent
 // blocks (rows 0-2 dL/dC, row 3 dL/dT_final), starts/ends and meta. Out is
 // the zero-initialized (16, exec_cap) f32 buffer, one column per sorted
@@ -37,7 +37,7 @@
 //   gwc   = w * (dL/dC . rgb)
 //   g_pow = gwc - (S + dL/dT_final * T_final) * alpha / (1 - alpha),
 //           0 where op*exp(power) > 0.99;   then S += gwc
-// and per slot the sums over the tile's 512 pixels: dL/drgb = sum dL/dC*w,
+// and per slot the sums over the tile's PIX pixels: dL/drgb = sum dL/dC*w,
 // s0 = sum g_pow, mx, my = sum g_pow*dx, g_pow*dy, and the second moments;
 // g_x = 2a'mx + b'my, g_y = 2c'my + b'mx. fp32 with accurate expf/log1pf
 // and --fmad=false; the TPU's fast_grad mode is a bf16-MXU precision trade,
@@ -84,6 +84,17 @@
 //     and the partials), below the 48 KB that would need a dynamic
 //     allocation. 4 pixels per thread held 16 warps per SM, 1 pixel per
 //     thread needed 16 partial rows per slot; both were slower.
+//
+// Other tile shapes (C3DGS_TILE_X/Y; tiles_common.cuh): the numbers above
+// are 32x16's (PIX 512, 256 threads, 8 warps). A tile of PIX pixels runs
+// PIX/2 threads in PIX/64 warps; MIN_CTAS keeps 32x16's 24 warps per SM
+// and so its 80-register budget (6 CTAs of 4 warps at 16x16, 12 of 2 at
+// 16x8; one of 16 at 32x32, up to 128 registers). The partials take
+// WARPS x 9 rows of 129 floats: 18.6 KB at 16x16 (28.8 KB a CTA with the
+// ring), 9.3 KB at 16x8, and 74.3 KB at 32x32, past the 48 KB of static
+// shared memory, so there they are the launch's dynamic shared memory
+// (84.5 KB a CTA; partial_dynamic_bytes). The fold over the warps keeps
+// its fixed warp order at every shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,9 +107,10 @@ using namespace c3dgs;
 
 constexpr int STAGED = 10;  // x, y, a', b', c', opacity, r, g, b, pre-sort slot
 constexpr int OFFSET_ROW = 10;  // fields row holding the pre-sort slot
-constexpr int PART_LD = CHUNK + 1;  // the 9 storing lanes hit 9 banks
+constexpr int MIN_CTAS = min_ctas(24);  // 3 CTAs of 8 warps at 32x16
+constexpr int DYNAMIC_BYTES = partial_dynamic_bytes(2 * STAGED * CHUNK * 4);
 
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
                         const int* __restrict__ starts,
                         const int* __restrict__ ends,
@@ -107,7 +119,7 @@ tiles_packed_bwd_kernel(const float* __restrict__ fields, long long stride,
                         const float* __restrict__ gout,
                         float* __restrict__ grads) {
   __shared__ __align__(128) float sf[2][STAGED][CHUNK];
-  __shared__ float part[WARPS * NSUM][PART_LD];  // row warp*9 + value
+  float(*part)[PART_LD] = partials<(DYNAMIC_BYTES > 0)>();  // row warp*9 + value
   __shared__ __align__(8) uint64_t bar[2];
   const int t = blockIdx.x;  // local block: global tile meta[1] + t
   const int tid = threadIdx.x;
@@ -225,7 +237,7 @@ extern "C" {
 // i32 slot ranges of the tiles tile_start, tile_start + 1, ... (ends =
 // sentinel slots); meta: (4,) i32 on the device, [chunks_exec, tile_start,
 // tile_end, cap]: CTA i is global tile tile_start + i, and CTAs at or past
-// tile_end walk nothing; totals: K1's (num_tiles, 8, 512) f32 blocks, in
+// tile_end walk nothing; totals: K1's (num_tiles, 8, PIX) f32 blocks, in
 // the same local numbering; gout: their cotangent, same shape; grads:
 // (16, stride) f32, zero-initialized by the caller. Launches on `stream`;
 // returns cudaGetLastError() (0 when the launch was accepted).
@@ -234,8 +246,13 @@ int c3dgs_tiles_packed_bwd(const float* fields, long long stride,
                            const int* meta, const float* totals,
                            const float* gout, float* grads, int num_tiles,
                            void* stream) {
+  if (DYNAMIC_BYTES > 0) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(tiles_packed_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DYNAMIC_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (num_tiles > 0) {
-    tiles_packed_bwd_kernel<<<num_tiles, THREADS, 0,
+    tiles_packed_bwd_kernel<<<num_tiles, THREADS, DYNAMIC_BYTES,
                               static_cast<cudaStream_t>(stream)>>>(
         fields, stride, starts, ends, meta, totals, gout, grads);
   }

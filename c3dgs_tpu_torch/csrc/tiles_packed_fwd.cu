@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel c3dgs_tpu/render/tiles_packed.py:149
 // (forward_kernel, launched by pallas_call at
 // c3dgs_tpu/render/rasterizer.py:121). Same contract: the same staged
-// fields in, the same (t_out, 8, 512) f32 tile blocks out, block i for
+// fields in, the same (t_out, 8, PIX) f32 tile blocks out, block i for
 // global tile meta[1] + i:
 //   rows 0-2  color without background
 //   row  3    exp(lt_final)
@@ -69,6 +69,12 @@
 //     skipped. Nothing else changes for such a slot.
 //   - Residency, chosen by measurement as K2's: 4 CTAs of 8 warps per SM
 //     (at most 64 registers), 9.2 KB of shared memory each.
+//
+// Other tile shapes (C3DGS_TILE_X/Y; tiles_common.cuh): the numbers above
+// are 32x16's (PIX 512, 256 threads, 8 warps). A tile of PIX pixels runs
+// PIX/2 threads in PIX/64 warps, and MIN_CTAS keeps 32x16's 32 warps per
+// SM and so its 64-register budget: 8 CTAs of 4 warps at 16x16, 16 of 2
+// at 16x8, 2 of 16 at 32x32. The shared memory does not depend on PIX.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,8 +86,9 @@ namespace {
 using namespace c3dgs;
 
 constexpr int USED = 9;  // x, y, a', b', c', opacity, r, g, b
+constexpr int MIN_CTAS = min_ctas(32);  // 4 CTAs of 8 warps at 32x16
 
-__global__ void __launch_bounds__(THREADS, 4)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 tiles_packed_fwd_kernel(const float* __restrict__ fields, long long stride,
                         const int* __restrict__ starts,
                         const int* __restrict__ ends,
@@ -195,7 +202,7 @@ extern "C" {
 // ranges of the tiles tile_start, tile_start + 1, ... (ends = sentinel
 // slots); meta: (4,) i32 on the device, [chunks_exec, tile_start,
 // tile_end, cap]: block i is global tile tile_start + i, and blocks at or
-// past tile_end are left unwritten; out: (num_tiles, 8, 512) f32.
+// past tile_end are left unwritten; out: (num_tiles, 8, PIX) f32.
 // Launches on `stream`; returns cudaGetLastError() (0 when the launch was
 // accepted).
 int c3dgs_tiles_packed_fwd(const float* fields, long long stride,

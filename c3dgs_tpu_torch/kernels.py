@@ -5,7 +5,10 @@ into a shared library under <repo>/build/c3dgs_tpu_torch/ at first use,
 then loaded with ctypes (no PyTorch headers, so a build takes seconds).
 Library names carry a hash of the source, the csrc/ headers it includes
 and the flags, so an edited source or header is rebuilt and a concurrent
-build never reads a half-written file.
+build never reads a half-written file. A source that includes
+tiles_common.cuh (K1-K4) is built for the tile shape of render/types.py
+(-DC3DGS_TILE_X/Y), and its library name carries that shape too
+(libtiles_fwd-16x16-<hash>.so), so the shapes never share a file.
 
 Each kernel is one `Kernel` record: its source, its C entry point, the TPU
 kernel it replaces, and a plain integer launch count that its `launch`
@@ -23,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
+
+from .render.types import TILE_X, TILE_Y
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "c3dgs_tpu_torch"
@@ -56,25 +61,35 @@ def nvcc_path() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def _source_bytes(source: str) -> bytes:
-    """The source followed by every csrc/ header it includes with quotes,
-    recursively, each once: an edited header changes the library name of
-    every source that includes it."""
-    seen, order, todo = set(), [], [source]
+def _sources(source: str) -> Dict[str, bytes]:
+    """The source and every csrc/ header it includes with quotes,
+    recursively, each once, in include order."""
+    order, todo = {}, [source]
     while todo:
         name = todo.pop(0)
-        if name in seen:
+        if name in order:
             continue
-        seen.add(name)
-        text = (CSRC / name).read_bytes()
-        order.append(text)
-        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(text))
-    return b"".join(order)
+        order[name] = (CSRC / name).read_bytes()
+        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(order[name]))
+    return order
+
+
+def shape_flags(source: str) -> Tuple[str, ...]:
+    """The tile-shape defines of a source that includes tiles_common.cuh,
+    none for any other."""
+    if "tiles_common.cuh" not in _sources(source):
+        return ()
+    return (f"-DC3DGS_TILE_X={TILE_X}", f"-DC3DGS_TILE_Y={TILE_Y}")
 
 
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256(_source_bytes(source) + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
+    """build/c3dgs_tpu_torch/lib<stem>[-<X>x<Y>]-<hash>.so: the hash covers
+    the source, its headers and every flag (an edited header changes the
+    name of every source that includes it)."""
+    shaped = shape_flags(source)
+    digest = hashlib.sha256(b"".join(_sources(source).values()) + " ".join((*NVCC_FLAGS, *shaped)).encode())
+    shape = f"-{TILE_X}x{TILE_Y}" if shaped else ""
+    return BUILD_DIR / f"lib{Path(source).stem}{shape}-{digest.hexdigest()[:12]}.so"
 
 
 @dataclasses.dataclass
@@ -96,7 +111,7 @@ def build(sources: Iterable[str]) -> Dict[str, BuildResult]:
             results[src] = BuildResult(src, 0.0, "")
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *shape_flags(src), "-o", str(tmp), str(CSRC / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp, time.perf_counter())
     failed = []
     for src, (proc, tmp, t0) in procs.items():

@@ -41,9 +41,13 @@ import torch
 
 from .. import kernels
 from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, PRESORT_ROW
-from .types import TILE_X, TILE_Y
+from .types import TILE_X, TILE_Y, kernel_shape_problem
 
 PIX = TILE_X * TILE_Y  # 512 pixels per tile at the default 32x16
+# the (rows, columns) of the pixel region one warp of K1-K4 covers
+# (csrc/tiles_common.cuh::pixel_index): two 8x4 blocks side by side, or
+# one above the other where the tile is an odd number of blocks wide
+WARP_REGION = (4, 16) if (TILE_X // 8) % 2 == 0 else (8, 8)
 STOP_T = 1e-4  # a contribution lands while T * (1 - alpha) >= STOP_T
 MIN_ALPHA = 1.0 / 255.0
 MAX_ALPHA = 0.99
@@ -129,13 +133,15 @@ def _check(fields, tile_ids, starts, ends, nchunks, grad_base=None) -> int:
 
 def _on_card(fields) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (the plain version); raises on any other device or tile shape."""
+    (the plain version, at any tile shape); raises on any other device,
+    and on the card for a tile shape the kernels cannot be built for."""
     if fields.device.type == "cpu":
         return False
     if fields.device.type != "cuda":
         raise ValueError(f"unsupported device {fields.device}")
-    if (TILE_X, TILE_Y) != (32, 16):
-        raise NotImplementedError(f"the CUDA kernels support 32x16 tiles only, got {TILE_X}x{TILE_Y}")
+    problem = kernel_shape_problem(TILE_X, TILE_Y)
+    if problem:
+        raise NotImplementedError(f"the CUDA kernels cannot take the tile shape C3DGS_TILE_X/Y set: {problem}")
     return True
 
 

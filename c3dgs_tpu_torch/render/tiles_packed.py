@@ -35,8 +35,8 @@ import torch
 
 from .. import kernels
 from .binning import CHUNK, NUM_FIELDS, NUM_USED_FIELDS, OFFSET_ROW
-from .tiles import (LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, SKIP_POWER, STOP_T,
-                    _check_blocks)
+from .tiles import (LOG_EXIT_T, LOG_STOP_T, MAX_ALPHA, MIN_ALPHA, OUT_ROWS, PIX, SKIP_POWER, STOP_T, WARP_REGION,
+                    _check_blocks, _on_card)
 from .types import TILE_X, TILE_Y
 
 TID_ROW = 9  # staged field row carrying the lane's tile id (f32 exact)
@@ -84,10 +84,6 @@ BACKWARD_KERNEL = kernels.register(
 
 def _check(fields, tile_lo, meta, starts, ends) -> int:
     """Validate the kernel's inputs; returns the out block count t_out."""
-    if (TILE_X, TILE_Y) != (32, 16):
-        raise NotImplementedError(
-            f"the packed kernels support 32x16 tiles only, got {TILE_X}x{TILE_Y}"
-        )
     dev = fields.device
     for name, t, dt in (
         ("fields", fields, torch.float32),
@@ -118,10 +114,8 @@ def forward(fields, tile_lo, meta, starts, ends) -> torch.Tensor:
     device, never read on the host here. CUDA tensors launch K1 (or raise);
     CPU tensors run forward_plain."""
     t_out = _check(fields, tile_lo, meta, starts, ends)
-    if fields.device.type == "cpu":
+    if not _on_card(fields):
         return forward_plain(fields, tile_lo, meta, starts, ends)
-    if fields.device.type != "cuda":
-        raise ValueError(f"unsupported device {fields.device}")
     out = torch.empty((t_out, OUT_ROWS, PIX), dtype=torch.float32, device=fields.device)
     launch(fields, meta, starts, ends, out)
     return out
@@ -251,10 +245,8 @@ def backward(fields, tile_lo, meta, starts, ends, totals, grad_out) -> torch.Ten
     t_out = _check(fields, tile_lo, meta, starts, ends)
     grad_out = grad_out.contiguous()
     _check_blocks(totals, grad_out, t_out, fields.device)
-    if fields.device.type == "cpu":
+    if not _on_card(fields):
         return backward_plain(fields, tile_lo, meta, starts, ends, totals, grad_out)
-    if fields.device.type != "cuda":
-        raise ValueError(f"unsupported device {fields.device}")
     grads = torch.zeros((NUM_FIELDS, fields.shape[1]), dtype=torch.float32, device=fields.device)
     launch_backward(fields, meta, starts, ends, totals, grad_out, grads)
     return grads
@@ -312,13 +304,13 @@ def _count_pairs(stats: dict, op: torch.Tensor, power: torch.Tensor, alpha: torc
 def _count_live_groups(stats: dict, live: torch.Tensor) -> None:
     """Add to `stats` the (slot, pixel group) pairs in which any pixel has
     alpha > 0, for the pixel groups the kernels' warps cover: `row_pairs`
-    (one 32-pixel tile row, the warps of K2's first version) and
-    `warp_pairs` (a 16x4 region, the redesigned K2's warps, which reduce
-    only such pairs). `live` is (PIX, lanes) bool, pixels row-major in the
-    tile."""
+    (one tile row, the warps of K2's first version at 32x16) and
+    `warp_pairs` (a WARP_REGION, 16x4 or 8x8, the redesigned K2's warps,
+    which reduce only such pairs). `live` is (PIX, lanes) bool, pixels
+    row-major in the tile."""
     lanes = live.shape[1]
     grid = live.reshape(TILE_Y, TILE_X, lanes)
-    for key, (gy, gx) in (("row_pairs", (1, TILE_X)), ("warp_pairs", (4, 16))):
+    for key, (gy, gx) in (("row_pairs", (1, TILE_X)), ("warp_pairs", WARP_REGION)):
         g = grid.reshape(TILE_Y // gy, gy, TILE_X // gx, gx, lanes).any(3).any(1)
         stats[key] = stats.get(key, 0) + int(g.sum())
 

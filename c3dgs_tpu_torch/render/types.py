@@ -10,15 +10,34 @@ import dataclasses
 import os as _os
 from typing import Tuple
 
-# Tile shape: 32x16 (the packed kernels' PIX = 512). Env-overridable for
-# tile-shape experiments (C3DGS_TILE_X/Y, read once at import); the CUDA
-# kernels support only the default and their wrappers raise on any other
-# shape.
+# Tile shape: 32x16 by default (PIX = 512 pixels per tile); the system this
+# repo ports uses 16x16 (its config.h:16-17). C3DGS_TILE_X/Y override it,
+# read once at import, so set them before the first import of this
+# package. The plain versions take any shape; the CUDA kernels are built
+# for the shape of these constants (kernels.py passes them to nvcc) and
+# cover the shapes kernel_shape_problem accepts.
 TILE_X = int(_os.environ.get("C3DGS_TILE_X", 32))  # pixels per tile, x
 TILE_Y = int(_os.environ.get("C3DGS_TILE_Y", 16))  # pixels per tile, y
+MAX_KERNEL_PIX = 2048  # 2 pixels per thread, at most 1024 threads per CTA
 # binning slot-domain ceiling: presort slots ride f32 staged-field rows and
 # must be exactly representable (2^24)
 MAX_BINNING_CAP = (1 << 24) - (1 << 20)
+
+
+def kernel_shape_problem(tx: int, ty: int) -> str:
+    """Why the CUDA kernels cannot take tx x ty tiles ('' when they can).
+
+    Their layout (csrc/tiles_common.cuh) covers a tile with 8x4-pixel
+    blocks, one 32-lane warp slice each, 2 pixels (two blocks) per thread:
+    tx % 8 == 0, ty % 4 == 0, an even number of blocks (PIX % 64 == 0) and
+    at most 1024 threads (PIX <= 2048)."""
+    if tx <= 0 or ty <= 0 or tx % 8 or ty % 4:
+        return f"{tx}x{ty}: the width must be a multiple of 8 and the height a multiple of 4"
+    if (tx * ty) % 64:
+        return f"{tx}x{ty}: {tx * ty} pixels are an odd number of 8x4 blocks (a warp takes two)"
+    if tx * ty > MAX_KERNEL_PIX:
+        return f"{tx}x{ty}: {tx * ty} pixels need more than 1024 threads per tile (2 pixels each)"
+    return ""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -125,8 +125,19 @@ Phases (any failed check raises, and the script exits non-zero):
      single-device, the replicas bitwise equal after the step); every
      rank's K1/K2 launches held to its calls; ranks 3 and 4 hold their
      tile-range K1/K2 against the plain versions;
- 21. the `kernels` JSON line (K1-K4, P1-P3), the card line, and the final
-     status line.
+ 21. other tile shapes, each in a child process of this script with
+     C3DGS_TILE_X/Y set (python3 chip_smoke.py --tile-phase 16x16 <cfg>):
+     at 16x16, the shape of the system this repo ports, K1-K4 built for
+     it and held against their plain versions on the small, freeze and
+     long-tile scenes and at the 300k bench frame (probe-exact buckets at
+     this shape; K2 and K4 twice, bitwise; times and bounds), 8 orbit
+     views served in each family, fwd+bwd in each family, 4 packed and
+     2 per-tile train_steps (the loss falls, the families' losses agree),
+     each kernel's launches held to its calls; the image's difference
+     from phase 4's 32x16 renders for information; at 16x8 and 32x32,
+     K1-K4 against their plain versions on the small scenes;
+ 22. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
+     `<name>@16x16`), the card line, and the final status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -137,6 +148,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -170,7 +182,7 @@ from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
-from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
+from c3dgs_tpu_torch.render.types import TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
@@ -410,8 +422,8 @@ def lt_margin(fields, start, boundary):
     """max over the tile's pixels of lt at slot `boundary` (float64 walk of
     slots [start, boundary)) minus log(1e-6): the freeze decision margin."""
     f = fields[:, start:boundary].double()
-    pix = torch.arange(512, device=fields.device)
-    px, py = (pix % 32).double()[:, None], (pix // 32).double()[:, None]
+    pix = torch.arange(tiles.PIX, device=fields.device)
+    px, py = (pix % TILE_X).double()[:, None], (pix // TILE_X).double()[:, None]
     dx, dy = f[0] - px, f[1] - py
     power = torch.clamp((f[2] * dx + f[3] * dy) * dx + (f[4] * dy) * dy, max=0.0)
     raw = f[5] * torch.exp(power)
@@ -428,15 +440,27 @@ def walk_lengths(name, starts, ends, frz, complete):
         f"max {int(n.max())}; {int((n > 1000).sum())} tiles above 1,000")
 
 
-def compare_k1(name, args, stats=None):
+def timed_plain(fn, timing):
+    """fn() (a plain version, after a device sync); its host-clock ms is
+    appended to `timing` when that is a list."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    if timing is not None:
+        timing.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def compare_k1(name, args, stats=None, timing=None):
     """K1 vs forward_plain on identical inputs: rows 0-4 within 2e-5 abs +
     1e-4 rel on tiles whose freeze slots agree; every freeze-slot mismatch
-    must sit within 1e-4 of the threshold (a rounding-order tie)."""
+    must sit within 1e-4 of the threshold (a rounding-order tie). The
+    plain call's ms goes to `timing` (a list) if given."""
     fields, tile_lo, meta, starts, ends = args
     out_k = tiles_packed.forward(*args)
     torch.cuda.synchronize()
-    out_p = tiles_packed.forward_plain(*args, stats=stats)
-    torch.cuda.synchronize()
+    out_p = timed_plain(lambda: tiles_packed.forward_plain(*args, stats=stats), timing)
     nc, _, _, cap = meta.tolist()
     complete = ends < nc * 128
     frz_k, frz_p = out_k[:, 5, 0], out_p[:, 5, 0]
@@ -474,8 +498,9 @@ def bench_settings(scene):
     return settings
 
 
-def phase_k1(scene, card_clock_mhz):
-    log("== phase 3: K1 against its plain version")
+def k1_small_scenes():
+    """K1 against its plain version on the two freeze scenes and the
+    long-tile scene at 64x48."""
     freeze = freeze_scenes()
     small = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45))
     ev = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=DEVICE)
@@ -488,6 +513,18 @@ def phase_k1(scene, card_clock_mhz):
     t = lambda x: torch.as_tensor(x, device=DEVICE)
     compare_k1("long-tile scene 64x48", staged_inputs(t(means), t(cov), t(opacity), ev, small, colors=t(colors)))
 
+
+def plain_times(fn, reps, compared):
+    """The plain version's host ms: `reps` timed calls, or with reps 0 the
+    one call the comparison made (`compared`)."""
+    return host_ms(fn, reps=reps) if reps else compared
+
+
+def phase_k1(scene, card_clock_mhz, plain_reps=3, label="phase 3"):
+    log(f"== {label}: K1 against its plain version")
+    k1_small_scenes()
+    ev = torch.tensor([0, 0, 0, 1, 0, 0, 0], dtype=torch.float32, device=DEVICE)
+
     # the bench frame, with bench.py's probe-exact buckets
     settings = bench_settings(scene)
     with torch.no_grad():
@@ -496,13 +533,13 @@ def phase_k1(scene, card_clock_mhz):
                           scene.get_features())
         b = bin_gaussians(prep, deg)
         args, complete = k1_args(prep, b, deg, scene.capacity)
-        stats = {}
-        err, mism, out_k, _ = compare_k1("bench frame 1920x1080", args, stats)
+        stats, plain_first = {}, []
+        err, mism, out_k, _ = compare_k1("bench frame 1920x1080", args, stats, plain_first)
 
         fields, tile_lo, meta, starts, ends = args
         out = torch.empty_like(out_k)
         ms = cuda_ms(lambda: tiles_packed.launch(fields, meta, starts, ends, out), reps=20)
-        plain_ms = host_ms(lambda: tiles_packed.forward_plain(*args))
+        plain_ms = plain_times(lambda: tiles_packed.forward_plain(*args), plain_reps, plain_first)
 
     # the least time for this frame's work: each staged field slot a tile
     # walks read once (9 f32 rows), starts/ends read, blocks written; every
@@ -515,13 +552,13 @@ def phase_k1(scene, card_clock_mhz):
     walked = int((torch.minimum(frz, ends.long()) - starts.long())[complete].sum())
     walk_lengths("bench frame", starts, ends, frz, complete)
     t = starts.shape[0]
-    bytes_moved = 9 * 4 * walked + 2 * 4 * t + t * 8 * 512 * 4
+    bytes_moved = 9 * 4 * walked + 2 * 4 * t + t * 8 * tiles.PIX * 4
     log(f"  work: {walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
         f"their exp, {stats['alpha_pairs']} with alpha > 0")
     bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 2 * stats["alpha_pairs"],
                                12 * stats["pairs"] + 11 * stats["alpha_pairs"], card_clock_mhz)
     log(f"  K1 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
-        f"plain {statistics.median(plain_ms):.1f} ms median of 3")
+        f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}")
     return {
         "name": "tiles_packed_fwd",
         "route": "cuda",
@@ -538,8 +575,8 @@ def phase_k1(scene, card_clock_mhz):
     }, settings, SimpleNamespace(args=args, out=out_k, b=b, deg=deg, complete=complete, walked=walked)
 
 
-def phase_serve(scene, settings):
-    log("== phase 4: serve 8 orbit poses (render_and_eval, inference=True, capacity policy)")
+def phase_serve(scene, settings, label="phase 4"):
+    log(f"== {label}: serve 8 orbit poses (render_and_eval, inference=True, capacity policy)")
     intrinsic = np.array([[1.2, 0, settings.width], [0, 1.2, settings.height], [0, 0, 1]])
     yaws = np.linspace(-0.35, 0.35, 8)
     views = [orbit_extrinsic(float(y)) for y in yaws]
@@ -778,13 +815,12 @@ def l1_cotangent(out_blocks, deg, complete):
     return g.contiguous()
 
 
-def compare_k2(name, args, totals, g, stats=None):
+def compare_k2(name, args, totals, g, stats=None, timing=None):
     """K2 vs backward_plain on identical inputs: rows 0-8 at normalized
     5e-4 per row, rows 9-15 exact. Returns (max abs err, K2 rows)."""
     got = tiles_packed.backward(*args, totals, g)
     torch.cuda.synchronize()
-    ref = tiles_packed.backward_plain(*args, totals, g, stats=stats)
-    torch.cuda.synchronize()
+    ref = timed_plain(lambda: tiles_packed.backward_plain(*args, totals, g, stats=stats), timing)
     errs = [normalized_err(got[r], ref[r]) for r in range(9)]
     abs_err = float((got[:9] - ref[:9]).abs().max())
     nonzero = int((got[:9] != 0).any(0).sum())
@@ -795,8 +831,9 @@ def compare_k2(name, args, totals, g, stats=None):
     return abs_err, got
 
 
-def phase_k2(ctx, clock_mhz):
-    log("== phase 7: K2 against its plain version")
+def k2_small_scenes():
+    """K2 against its plain version on the occluder, wall, boundary and
+    long-tile scenes, twice (bitwise) on the long-tile one."""
     small = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45))
     scenes = grad_scenes()
     ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
@@ -815,11 +852,15 @@ def phase_k2(ctx, clock_mhz):
                 raise AssertionError("K2 is not bitwise repeatable on the long-tile scene")
             log("  K2 run twice on the long-tile scene: bitwise equal")
 
+
+def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
+    log(f"== {label}: K2 against its plain version")
+    k2_small_scenes()
     fields, tile_lo, meta, starts, ends = args = ctx.args
     totals = ctx.out
     g = l1_cotangent(totals, ctx.deg, ctx.complete)
-    stats = {}
-    err, got = compare_k2("bench frame 1920x1080 (L1 cotangent)", args, totals, g, stats)
+    stats, plain_first = {}, []
+    err, got = compare_k2("bench frame 1920x1080 (L1 cotangent)", args, totals, g, stats, plain_first)
     again = tiles_packed.backward(*args, totals, g)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -828,7 +869,7 @@ def phase_k2(ctx, clock_mhz):
 
     buf = torch.zeros_like(got)
     ms = cuda_ms(lambda: tiles_packed.launch_backward(fields, meta, starts, ends, totals, g, buf), reps=20)
-    plain_ms = host_ms(lambda: tiles_packed.backward_plain(*args, totals, g))
+    plain_ms = plain_times(lambda: tiles_packed.backward_plain(*args, totals, g), plain_reps, plain_first)
 
     # the reduction after K2: d_table per column against a float64
     # index_add over every emission whose sorted slot lies in the execution
@@ -863,17 +904,18 @@ def phase_k2(ctx, clock_mhz):
     # log1p, an exp and a reciprocal per pair with alpha > 0, on the
     # special-function units
     t = starts.shape[0]
-    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * rows + 2 * 4 * t
+    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * tiles.PIX + 16 * 4 * rows + 2 * 4 * t
     log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
         f"their exp, {stats['alpha_pairs']} with alpha > 0")
     walk_lengths("bench frame", starts, ends, totals[:, 5, 0], ctx.complete)
-    log(f"  (slot, pixel group) pairs with any alpha > 0: {stats['row_pairs']} of 32-pixel rows (K2's first warps: "
-        f"{45 * stats['row_pairs']} shuffles at 45 each), {stats['warp_pairs']} of 16x4 regions (the "
+    region = "x".join(map(str, tiles.WARP_REGION[::-1]))
+    log(f"  (slot, pixel group) pairs with any alpha > 0: {stats['row_pairs']} of {TILE_X}-pixel rows (K2's first "
+        f"warps: {45 * stats['row_pairs']} shuffles at 45 each), {stats['warp_pairs']} of {region} regions (the "
         f"redesign's warps: {12 * stats['warp_pairs']} shuffles at 12 each)")
     bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 3 * stats["alpha_pairs"],
                                12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
     log(f"  K2 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
-        f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
+        f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}; reduction (fast_grad) "
         f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
     return {
         "name": "tiles_packed_bwd",
@@ -903,14 +945,14 @@ def device_busy_ms(fn):
     return sum(dev_time(e) for e in rows) / 1e3, sorted(rows, key=dev_time, reverse=True)
 
 
-def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, phase=8):
+def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, label="phase 8"):
     """bench.py's metric on the card: one forward and the gradients of the
     L1 loss against a zero image with respect to the 7 scene parameters,
     through the kernel family `settings.packed` selects; bwd_ms and red_ms
     are its backward kernel's and its reduction's times at this frame."""
     fwd_k, bwd_k = (tiles_packed.FORWARD_KERNEL, tiles_packed.BACKWARD_KERNEL) if settings.packed else \
         (tiles.FORWARD_KERNEL, tiles.BACKWARD_KERNEL)
-    log(f"== phase {phase}: fwd+bwd at the bench frame (bench.py's metric), packed={settings.packed}")
+    log(f"== {label}: fwd+bwd at the bench frame (bench.py's metric), packed={settings.packed}")
     ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
     bg = torch.zeros(3, device=DEVICE)
     params = list(trainer.scene_params(scene).values())
@@ -1073,13 +1115,12 @@ def per_tile_small_scenes():
     return out
 
 
-def compare_k3(name, args, tiles_x, stats=None):
+def compare_k3(name, args, tiles_x, stats=None, timing=None):
     """K3 vs forward_plain on identical inputs: rows 0-4 within 2e-5 abs +
     1e-4 rel, `stop` (row 5) and rows 6-7 exactly equal."""
     out_k = tiles.forward(*args, tiles_x)
     torch.cuda.synchronize()
-    out_p = tiles.forward_plain(*args, tiles_x, stats=stats)
-    torch.cuda.synchronize()
+    out_p = timed_plain(lambda: tiles.forward_plain(*args, tiles_x, stats=stats), timing)
     nch = args[4].float()
     stopped = int((out_p[:, 5, 0] < nch).sum())
     mism = int((out_k[:, 5] != out_p[:, 5]).any(1).sum())
@@ -1091,10 +1132,14 @@ def compare_k3(name, args, tiles_x, stats=None):
     return err, out_k
 
 
-def phase_k3(scene, settings, clock_mhz):
-    log("== phase 10: K3 (per-tile forward) against its plain version")
+def k3_small_scenes():
     for name, (args, _, st, _) in per_tile_small_scenes().items():
         compare_k3(f"{name} scene {st.width}x{st.height}", args, st.tiles_x)
+
+
+def phase_k3(scene, settings, clock_mhz, plain_reps=3, label="phase 10"):
+    log(f"== {label}: K3 (per-tile forward) against its plain version")
+    k3_small_scenes()
 
     # the bench frame with probe-exact per-tile buckets: phase 3's slot
     # bucket, and a grad bucket sized from the per-tile grad_total
@@ -1114,11 +1159,11 @@ def phase_k3(scene, settings, clock_mhz):
                           scene.get_features())
         b = bin_gaussians(prep, deg)
         args, grad_base = per_tile_args(prep, b, deg)
-        stats = {}
-        err, out_k = compare_k3("bench frame 1920x1080", args, deg.tiles_x, stats)
+        stats, plain_first = {}, []
+        err, out_k = compare_k3("bench frame 1920x1080", args, deg.tiles_x, stats, plain_first)
         out = torch.empty_like(out_k)
         ms = cuda_ms(lambda: tiles.launch(*args, deg.tiles_x, out), reps=20)
-        plain_ms = host_ms(lambda: tiles.forward_plain(*args, deg.tiles_x))
+        plain_ms = plain_times(lambda: tiles.forward_plain(*args, deg.tiles_x), plain_reps, plain_first)
 
     # the least time for this frame's work: each instance of a window
     # walked before `stop` read once (9 f32 rows), the four (T,) int
@@ -1129,7 +1174,7 @@ def phase_k3(scene, settings, clock_mhz):
     stop = out_k[:, 5, 0].long()
     walked = int(torch.minimum((ends - starts).long(), stop * 128).sum())
     t = starts.shape[0]
-    bytes_moved = 9 * 4 * walked + 4 * 4 * t + t * 8 * 512 * 4
+    bytes_moved = 9 * 4 * walked + 4 * 4 * t + t * 8 * tiles.PIX * 4
     log(f"  work: {walked} walked instances in {int(torch.minimum(stop, nch.long()).sum())} windows, "
         f"{stats['pairs']} (pixel, instance) pairs, {stats['exp_pairs']} needing their exp "
         f"({stats['exp_pairs'] / stats['pairs']:.1%}), {stats['alpha_pairs']} with alpha > 0")
@@ -1138,7 +1183,7 @@ def phase_k3(scene, settings, clock_mhz):
     log(f"  K3 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 2, flops, clock_mhz):.4f} ms "
         "when every pair's exp was counted")
     log(f"  K3 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
-        f"plain {statistics.median(plain_ms):.1f} ms median of 3")
+        f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}")
     return {
         "name": "tiles_fwd",
         "route": "cuda",
@@ -1155,13 +1200,13 @@ def phase_k3(scene, settings, clock_mhz):
 
 
 # ------------------------------------------------------- per-tile: K4
-def compare_k4(name, args, grad_base, totals, g, tiles_x, grad_cap, stats=None):
+def compare_k4(name, args, grad_base, totals, g, tiles_x, grad_cap, stats=None, timing=None):
     """K4 vs backward_plain on identical inputs: rows 0-8 at normalized
     5e-4 per row, rows 9-15 exact. Returns (max abs err, K4 rows)."""
     got = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
     torch.cuda.synchronize()
-    ref = tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap, stats=stats)
-    torch.cuda.synchronize()
+    ref = timed_plain(lambda: tiles.backward_plain(*args, grad_base, totals, g, tiles_x, grad_cap, stats=stats),
+                      timing)
     errs = [normalized_err(got[r], ref[r]) for r in range(9)]
     abs_err = float((got[:9] - ref[:9]).abs().max())
     nonzero = int((got[:9] != 0).any(0).sum())
@@ -1172,8 +1217,7 @@ def compare_k4(name, args, grad_base, totals, g, tiles_x, grad_cap, stats=None):
     return abs_err, got
 
 
-def phase_k4(scene, ctx, clock_mhz):
-    log("== phase 11: K4 (per-tile backward) against its plain version")
+def k4_small_scenes():
     for name, (args, grad_base, st, grad_cap) in per_tile_small_scenes().items():
         totals = tiles.forward(*args, st.tiles_x)
         g = np.zeros(tuple(totals.shape), np.float32)
@@ -1181,12 +1225,17 @@ def phase_k4(scene, ctx, clock_mhz):
         compare_k4(f"{name} scene {st.width}x{st.height}", args, grad_base, totals, torch.as_tensor(g, device=DEVICE),
                    st.tiles_x, grad_cap)
 
+
+def phase_k4(scene, ctx, clock_mhz, plain_reps=3, label="phase 11"):
+    log(f"== {label}: K4 (per-tile backward) against its plain version")
+    k4_small_scenes()
     args, grad_base, totals, deg, b = ctx.args, ctx.grad_base, ctx.out, ctx.deg, ctx.b
     tx = deg.tiles_x
     grad_cap = deg.resolve_grad_cap(scene.capacity)
     g = l1_cotangent(totals, deg, None)
-    stats = {}
-    err, got = compare_k4("bench frame 1920x1080 (L1 cotangent)", args, grad_base, totals, g, tx, grad_cap, stats)
+    stats, plain_first = {}, []
+    err, got = compare_k4("bench frame 1920x1080 (L1 cotangent)", args, grad_base, totals, g, tx, grad_cap, stats,
+                          plain_first)
     again = tiles.backward(*args, grad_base, totals, g, tx, grad_cap)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -1216,7 +1265,7 @@ def phase_k4(scene, ctx, clock_mhz):
 
     buf = torch.zeros_like(got)
     ms = cuda_ms(lambda: tiles.launch_backward(*args, grad_base, totals, g, tx, buf), reps=20)
-    plain_ms = host_ms(lambda: tiles.backward_plain(*args, grad_base, totals, g, tx, grad_cap))
+    plain_ms = plain_times(lambda: tiles.backward_plain(*args, grad_base, totals, g, tx, grad_cap), plain_reps, plain_first)
 
     # the per-tile reduction: d_table per column against a float64
     # index_add over the rows keyed by a pre-sort slot, both modes
@@ -1241,7 +1290,7 @@ def phase_k4(scene, ctx, clock_mhz):
     # walked (pixel, instance) pair, and a log1p, an exp and a reciprocal
     # per pair with alpha > 0, on the special-function units
     t = args[2].shape[0]
-    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * 512 + 16 * 4 * grad_cap + 5 * 4 * t
+    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * tiles.PIX + 16 * 4 * grad_cap + 5 * 4 * t
     log(f"  work: {ctx.walked} walked instances, {stats['pairs']} (pixel, instance) pairs, "
         f"{stats['exp_pairs']} needing their exp, {stats['alpha_pairs']} with alpha > 0; "
         f"grad buffer {grad_cap} columns")
@@ -1250,7 +1299,7 @@ def phase_k4(scene, ctx, clock_mhz):
     log(f"  K4 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 3, flops, clock_mhz):.4f} ms "
         "when every pair's exp was counted")
     log(f"  K4 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
-        f"plain {statistics.median(plain_ms):.1f} ms median of 3; reduction (fast_grad) "
+        f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}; reduction (fast_grad) "
         f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
     return {
         "name": "tiles_bwd",
@@ -1268,8 +1317,8 @@ def phase_k4(scene, ctx, clock_mhz):
 
 
 # ---------------------------------------------------- per-tile: paths
-def phase_serve_per_tile(scene, cams):
-    log("== phase 12: serve the 8 orbit poses with packed=False (render_and_eval, inference=True)")
+def phase_serve_per_tile(scene, cams, label="phase 12"):
+    log(f"== {label}: serve the 8 orbit poses with packed=False (render_and_eval, inference=True)")
     base = settings_from_intrinsic(cams[0].intrinsic, inference=True, packed=False)
     policy = CapacityPolicy()
     for cam in cams:  # warm-up: the policy's buckets settle
@@ -1307,8 +1356,12 @@ def phase_grads_per_tile():
     small_scene_grads(packed=False)
 
 
-def phase_train_per_tile(scene, base, steps=4):
-    log(f"== phase 15: train the 300k scene with packed=False ({steps} steps, quantization on, SH degree 3)")
+def phase_train_steps(scene, base, steps=4, label="phase 15"):
+    """`steps` train_steps of the 300k scene, quantized, through the kernel
+    family `base.packed` selects; returns the launches and the losses."""
+    fwd, bwd, other = ("tiles_packed_fwd", "tiles_packed_bwd", ("tiles_fwd", "tiles_bwd")) if base.packed else \
+        ("tiles_fwd", "tiles_bwd", ("tiles_packed_fwd", "tiles_packed_bwd"))
+    log(f"== {label}: train the 300k scene with packed={base.packed} ({steps} steps, quantization on, SH degree 3)")
     ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
     bg = torch.zeros(3, device=DEVICE)
     tscene = scene.pad_to_capacity(scene.capacity + 1024)
@@ -1319,7 +1372,8 @@ def phase_train_per_tile(scene, base, steps=4):
         target = trainer.render_scene(tscene, ev, base, bg, device=DEVICE)["render"].clone()
         tscene.opacity -= 1.0
     policy = probe_policy(tscene, base, ev, bg)
-    log(f"  probe-exact buckets: slots {policy.capacity}, per-tile grad {policy.grad_capacity}")
+    log(f"  probe-exact buckets: slots {policy.capacity}, {'execution' if base.packed else 'per-tile grad'} "
+        f"{policy.grad_capacity}")
     opt = OptimizationParams()
     kernels.reset_counts()
     state = trainer.create_train_state(tscene, opt, spatial_lr_scale=1.0, device=DEVICE)
@@ -1342,9 +1396,9 @@ def phase_train_per_tile(scene, base, steps=4):
     assert all(math.isfinite(h[0]) for h in hist), "non-finite loss"
     assert hist[-1][0] < hist[0][0], "the loss did not fall"
     assert all(h[1] == 0 and h[2] == 0 for h in hist), f"overflow in training: {hist}"
-    assert launches["tiles_bwd"] == steps and launches["tiles_fwd"] == steps, launches
-    assert launches["tiles_packed_fwd"] == 0 and launches["tiles_packed_bwd"] == 0, launches
-    return launches
+    assert launches[bwd] == steps and launches[fwd] == steps, launches
+    assert launches[other[0]] == 0 and launches[other[1]] == 0, launches
+    return launches, [h[0] for h in hist]
 
 
 # --------------------------------------------------------- DMA probes
@@ -2363,7 +2417,7 @@ def mp_work(rank: int, cfg: dict) -> dict:
     args = (fields, rb.tile_lo, meta, rb.starts, rb.ends)
     totals = tiles_packed.forward(*args)
     g = torch.zeros_like(totals)
-    g[:, :4] = torch.as_tensor(np.random.default_rng(rank).normal(size=(totals.shape[0], 4, 512)),
+    g[:, :4] = torch.as_tensor(np.random.default_rng(rank).normal(size=(totals.shape[0], 4, tiles.PIX)),
                                dtype=torch.float32, device=DEVICE)
     buf = torch.zeros((16, fields.shape[1]), device=DEVICE)
     out = torch.empty_like(totals)
@@ -2455,11 +2509,113 @@ def phase_multi(scene, bench_settings, world=MP_WORLD):
     return {"tiles_packed_fwd": k1, "tiles_packed_bwd": k2}
 
 
+# ---------------------------------------- another tile shape (phase 21)
+TILE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tiles"
+TILE_SOURCES = ("tiles_packed_fwd.cu", "tiles_packed_bwd.cu", "tiles_fwd.cu", "tiles_bwd.cu")
+# 16x16 at full width (the shape of the system this repo ports, config.h:16-17);
+# 16x8 and 32x32, the kernels' 64- and 512-thread ends, on the small scenes
+TILE_SHAPES = (("16x16", True), ("16x8", False), ("32x32", False))
+
+
+def phase_tiles(scene, cams):
+    """Phase 21: K1-K4 built for other tile shapes, each shape in a child
+    process of this script (the shape is read at import) that loads the
+    scene this one wrote. Raises if a child fails; returns the 16x16
+    child's kernel records."""
+    log("== phase 21: K1-K4 at other tile shapes, one child process per shape (C3DGS_TILE_X/Y set before import)")
+    shutil.rmtree(TILE_DIR, ignore_errors=True)
+    TILE_DIR.mkdir(parents=True)
+    bench = save_scene(scene, TILE_DIR / "bench.npz")
+    np.save(TILE_DIR / f"views_{TILE_X}x{TILE_Y}.npy", torch.stack([c.original_image for c in cams]).cpu().numpy())
+    torch.cuda.empty_cache()  # the child shares the card with this process
+    records = []
+    for shape, full in TILE_SHAPES:
+        tx, ty = shape.split("x")
+        cfg = dict(bench=bench, full=full, refs=str(TILE_DIR / f"views_{TILE_X}x{TILE_Y}.npy"),
+                   out=str(TILE_DIR / f"{shape}.json"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tile-phase", shape, json.dumps(cfg)],
+                              env=dict(os.environ, C3DGS_TILE_X=tx, C3DGS_TILE_Y=ty), timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 21 at {shape}: the child exited {proc.returncode}")
+        res = json.loads(Path(cfg["out"]).read_text())
+        assert res["tile"] == [int(tx), int(ty)], res["tile"]
+        log(f"  {shape}: every check passed in the child, {time.perf_counter() - t0:.1f} s")
+        if full:
+            records = res["kernels"]
+    log(f"  phase 21 card: {smi('name,power.limit')}")
+    return records
+
+
+def tile_child(shape: str, cfg: dict) -> int:
+    """Phase 21 at one tile shape, in the child process whose C3DGS_TILE_X/Y
+    the parent set: build K1-K4 for it, hold each against its plain
+    version (small scenes; with cfg["full"] also the bench frame with its
+    bound and times, serving, fwd+bwd and training in both families)."""
+    assert [TILE_X, TILE_Y] == [int(v) for v in shape.split("x")], (TILE_X, TILE_Y)
+    label = f"phase 21 at {shape}"
+    region = "x".join(map(str, tiles.WARP_REGION[::-1]))
+    log(f"== {label}: build K1-K4 for {TILE_X}x{TILE_Y} tiles ({tiles.PIX} pixels, {tiles.PIX // 2} threads a "
+        f"tile), {tiles.PIX // 64} warps of {region} pixels")
+    results = kernels.build(TILE_SOURCES)
+    for src in TILE_SOURCES:
+        log(f"  {src}: nvcc {results[src].seconds:.1f} s -> {kernels.library_path(src).name}")
+        for line in results[src].log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"    {line.strip()}")
+    out = {"tile": [TILE_X, TILE_Y]}
+    if not cfg["full"]:
+        log(f"== {label}: K1-K4 against their plain versions on the small scenes")
+        k1_small_scenes()
+        k2_small_scenes()
+        k3_small_scenes()
+        k4_small_scenes()
+        Path(cfg["out"]).write_text(json.dumps(out))
+        return 0
+
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    scene = load_scene(cfg["bench"])
+    k1, settings, ctx = phase_k1(scene, clock_mhz, plain_reps=0, label=label)
+    log(f"  {TILE_X}x{TILE_Y}: {settings.num_tiles} tiles, {int((~ctx.b.sent_sorted).sum())} instances at the bench "
+        "frame")
+    k2, red_ms = phase_k2(ctx, clock_mhz, plain_reps=0, label=label)
+    k3, settings_pt, ctx_pt = phase_k3(scene, settings, clock_mhz, plain_reps=0, label=label)
+    k4, red_pt_ms = phase_k4(scene, ctx_pt, clock_mhz, plain_reps=0, label=label)
+    del ctx, ctx_pt
+    launches, serve_ms, cams = phase_serve(scene, settings, label=label)
+    k1["launches"] = launches[k1["name"]]
+    ref = np.load(cfg["refs"])
+    diff = [float(np.abs(c.original_image.cpu().numpy() - r).max()) for c, r in zip(cams, ref)]
+    log(f"  (information) max |image at {shape} - image at {cfg['refs'].split('views_')[1][:-4]}| over the 8 views: "
+        f"{max(diff):.3e}; per view {[f'{d:.2e}' for d in diff]}")
+    k3["launches"] = phase_serve_per_tile(scene, cams, label=label)[k3["name"]]
+    phase_fwd_bwd(scene, settings, k2["ms"], red_ms, label=label)
+    phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, label=label)
+    base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
+    packed, loss_p = phase_train_steps(scene, base, steps=4, label=label)
+    per_tile, loss_t = phase_train_steps(scene, dataclasses.replace(base, packed=False), steps=2, label=label)
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss_p, loss_t)]
+    log(f"  packed vs per-tile loss at steps 1-2: {loss_p[:2]} vs {loss_t}; relative {rel[0]:.2e}, {rel[1]:.2e}")
+    assert rel[0] < 1e-5 and rel[1] < 1e-3, f"the two families' losses part: {rel}"
+    k1["launches"] += packed[k1["name"]]  # serving's renders plus the packed train_steps
+    k2["launches"] = packed[k2["name"]]
+    k3["launches"] += per_tile[k3["name"]]
+    k4["launches"] = per_tile[k4["name"]]
+    for k in (k1, k2, k3, k4):
+        k["name"] = f"{k['name']}@{shape}"
+    out["kernels"] = [k1, k2, k3, k4]
+    print(json.dumps({"kernels": out["kernels"]}), flush=True)
+    Path(cfg["out"]).write_text(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
         return 2
     assert "jax" not in sys.modules and "c3dgs_tpu" not in sys.modules
+    if sys.argv[1:2] == ["--tile-phase"]:
+        return tile_child(sys.argv[2], json.loads(sys.argv[3]))
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2484,8 +2640,8 @@ def main() -> int:
     k4, red_pt_ms = phase_k4(scene, ctx_pt, clock_mhz)
     k3["launches"] = phase_serve_per_tile(scene, cams)[k3["name"]]
     phase_grads_per_tile()
-    phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, phase=14)
-    train_pt = phase_train_per_tile(scene, dataclasses.replace(base, packed=False))
+    phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, label="phase 14")
+    train_pt, _ = phase_train_steps(scene, dataclasses.replace(base, packed=False))
     k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
     k4["launches"] = train_pt[k4["name"]]
     probes = phase_probes()
@@ -2501,8 +2657,9 @@ def main() -> int:
     multi = phase_multi(scene, settings)
     k1["launches"] += multi[k1["name"]]  # every rank's sharded and reference renders and steps
     k2["launches"] += multi[k2["name"]]
+    other_shape = phase_tiles(scene, cams)
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, *probes]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, *probes, *other_shape]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

@@ -26,6 +26,7 @@ from c3dgs_tpu_torch.render import oracle as toracle
 from c3dgs_tpu_torch.render import rasterizer as trast
 from c3dgs_tpu_torch.render import tiles_packed as ttiles
 from c3dgs_tpu_torch.render.binning import NUM_USED_FIELDS, bin_gaussians
+from c3dgs_tpu_torch.render.tiles import PIX
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
 from test_torch_gpu import EV, SCENES, make_scene, render_grads
 from test_torch_render import _j, _t, k1_args, staged
@@ -45,8 +46,8 @@ def assert_normalized(got, ref, atol, name=""):
 def cotangent(num_tiles, seed=0):
     """Random dL/dC and dL/dT_final rows; rows 4-7 zero, as assemble_image
     leaves them."""
-    g = np.zeros((num_tiles, 8, 512), np.float32)
-    g[:, :4] = np.random.default_rng(seed).normal(size=(num_tiles, 4, 512))
+    g = np.zeros((num_tiles, 8, PIX), np.float32)
+    g[:, :4] = np.random.default_rng(seed).normal(size=(num_tiles, 4, PIX))
     return g
 
 

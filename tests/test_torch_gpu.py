@@ -10,7 +10,9 @@ codebook gradients against the CPU path, bitwise-repeatable VQ and
 codebook gradients, fp32 nearest-codebook search, two finetune steps and
 eigh past cuSOLVER's batch limit; the train CLI on the card against the
 CPU; the pose gradient and a camera_step, and LPIPS, on the card against
-the CPU.
+the CPU; K1-K4 built for 16x16 tiles against their plain versions, in a
+child process (tests/torch_tile_shape_cases.py), and the wrappers'
+refusal of a tile shape the kernels cannot take.
 
 This file imports no JAX, so it also runs on a machine with a card and no
 JAX installed: `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
@@ -20,7 +22,11 @@ and tests/test_torch_backward.py feed to both packages.
 """
 import copy
 import dataclasses
+import json
 import math
+import os
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,6 +46,7 @@ from c3dgs_tpu_torch.tools import dma_probe as tprobe
 from c3dgs_tpu_torch.tools import scenes
 from c3dgs_tpu_torch.train import finetune, trainer
 import torch_ranks
+import torch_tile_shape_cases
 
 EV = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
 IMG_TOL = dict(atol=2e-5, rtol=1e-4)  # the reference's bar, tests/test_render.py:113
@@ -177,7 +184,7 @@ def test_k1_inputs_stage_on_cpu():
     sc, kw = wall_scene()
     args = k1_inputs(sc, kw, "cpu")
     out = tiles_packed.forward(*args)
-    assert out.shape == (RasterSettings(**kw).num_tiles, 8, 512)
+    assert out.shape == (RasterSettings(**kw).num_tiles, 8, tiles.PIX)
     assert bool((out[:, 5, 0] < float(args[2][3])).any())  # frozen tiles
 
 
@@ -260,7 +267,7 @@ def test_routed_long_tile_blocks_match_single_device():
         assert int(rb.route_dropped) == 0
         out = tiles_packed.forward(*args)
         owned = rb.t1 - rb.t0
-        assert out.shape == (2, 8, 512) and rb.t0 == 2 * d and owned == (0 if d == 3 else 2)
+        assert out.shape == (2, 8, tiles.PIX) and rb.t0 == 2 * d and owned == (0 if d == 3 else 2)
         ref = full[rb.t0 : rb.t1]
         torch.testing.assert_close(out[:owned, :5], ref[:, :5], **K1_TOL)
         assert torch.equal(out[:owned, 5] < cap, ref[:, 5] < cap)
@@ -287,7 +294,7 @@ def test_k1_k2_tile_range_match_plain():
         torch.testing.assert_close(out_k[:owned, :5], out_p[:owned, :5], **K1_TOL)
         assert torch.equal(out_k[:owned, 5:], out_p[:owned, 5:])
         g = torch.zeros_like(out_p)
-        g[:owned, :4] = torch.as_tensor(np.random.default_rng(d).normal(size=(owned, 4, 512)), dtype=torch.float32)
+        g[:owned, :4] = torch.as_tensor(np.random.default_rng(d).normal(size=(owned, 4, tiles.PIX)), dtype=torch.float32)
         got = tiles_packed.backward(*args, out_p, g)
         torch.cuda.synchronize()
         assert (tiles_packed.FORWARD_KERNEL.launches, tiles_packed.BACKWARD_KERNEL.launches) == (
@@ -316,7 +323,7 @@ def test_k1_k2_full_range_equals_split_ranges_bitwise():
     split = torch.cat([tiles_packed.forward(fields, tile_lo, m, starts[sl], ends[sl]) for m, sl in parts])
     assert torch.equal(split, full)
     g = torch.zeros_like(full)
-    g[:, :4] = torch.as_tensor(np.random.default_rng(3).normal(size=(t, 4, 512)), dtype=torch.float32)
+    g[:, :4] = torch.as_tensor(np.random.default_rng(3).normal(size=(t, 4, tiles.PIX)), dtype=torch.float32)
     grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, full, g)
     summed = sum(tiles_packed.backward(fields, tile_lo, m, starts[sl], ends[sl], full[sl], g[sl]) for m, sl in parts)
     assert torch.equal(summed, grads)
@@ -434,7 +441,7 @@ def test_packed_plain_counts_the_exps_the_kernels_skip():
     alpha[0, 3] = 0.3
     stats = {}
     tiles_packed._count_pairs(stats, op, power, alpha)
-    assert stats == dict(pairs=3 * 512, exp_pairs=4, alpha_pairs=1)
+    assert stats == dict(pairs=3 * tiles.PIX, exp_pairs=4, alpha_pairs=1)
 
 
 @pytest.mark.parametrize("scene", ["wall", "long_tile"])
@@ -493,6 +500,49 @@ def test_k2_is_deterministic():
     assert torch.equal(a, b)
 
 
+# --------------------------------------------- another tile shape: 16x16
+@pytest.fixture(scope="module")
+def cases_16x16(tmp_path_factory):
+    """tests/torch_tile_shape_cases.py's card cases in a child process at
+    C3DGS_TILE_X=C3DGS_TILE_Y=16 (the tile shape is read at import): K1-K4
+    built for 16x16 against their plain versions on the small scenes and
+    the long-tile scene, K2 and K4 twice."""
+    _need_card()
+    out = tmp_path_factory.mktemp("tile_16x16") / "cases.json"
+    env = dict(os.environ, C3DGS_TILE_X="16", C3DGS_TILE_Y="16")
+    proc = subprocess.run([sys.executable, torch_tile_shape_cases.__file__, "card", str(out)], env=env,
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return json.loads(out.read_text())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", torch_tile_shape_cases.case_names("card"))
+def test_kernels_at_16x16_match_plain(cases_16x16, case):
+    """At 16x16: forward rows at atol 2e-5 / rtol 1e-4 and rows 5-7
+    exact, gradient rows 0-8 at normalized 5e-4 per row and 9-15 exact,
+    each launch counted once, K2's and K4's repeat bitwise equal."""
+    assert cases_16x16["tile"] == [16, 16]
+    assert cases_16x16[case] == "ok", cases_16x16[case]
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_an_unsupported_tile_shape_before_launching(monkeypatch):
+    """A tile shape the kernels cannot take raises on the card, with its
+    reason, and launches nothing: no wrapper falls back to its plain
+    version."""
+    _need_card()
+    args, totals, g = k2_inputs("make_scene", "cuda")
+    pt, grad_base, st = k3_inputs(*make_scene(300), "cuda")
+    monkeypatch.setattr(tiles, "TILE_X", 20)
+    before = {k.name: k.launches for k in kernels.REGISTRY.values()}
+    for call in (lambda: tiles_packed.forward(*args), lambda: tiles_packed.backward(*args, totals, g),
+                 lambda: tiles.forward(*pt, st.tiles_x)):
+        with pytest.raises(NotImplementedError, match="20x16: the width must be a multiple of 8"):
+            call()
+    assert {k.name: k.launches for k in kernels.REGISTRY.values()} == before
+
+
 def k3_inputs(sc, kw, device, **over):
     """The port's own staged per-tile inputs on `device`: K3's (fields,
     tile_ids, starts, ends, nchunks), then grad_base and the settings."""
@@ -522,7 +572,7 @@ def test_k3_k4_inputs_run_on_cpu():
     through the wrappers' CPU route (the plain versions); the wall scene's
     saturation exit skips windows."""
     args, grad_base, totals, g, tiles_x, grad_cap = k4_inputs("wall", "cpu")
-    assert totals.shape == (args[1].shape[0], 8, 512)
+    assert totals.shape == (args[1].shape[0], 8, tiles.PIX)
     assert bool((totals[:, 5, 0] < args[4].float()).any())
     grads = tiles.backward(*args, grad_base, totals, g, tiles_x, grad_cap)
     assert grads.shape == (16, grad_cap) and bool(grads[:9].abs().max() > 0)

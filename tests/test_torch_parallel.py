@@ -45,6 +45,7 @@ from c3dgs_tpu.render.types import RasterSettings as JSettings
 from c3dgs_tpu.train import trainer as jtrainer
 from c3dgs_tpu_torch.render import binning as tbinning
 from c3dgs_tpu_torch.render import tiles_packed as ttiles
+from c3dgs_tpu_torch.render.tiles import PIX
 from test_torch_backward import GRAD_TOL, assert_normalized, cotangent
 from test_torch_gpu import make_scene
 from test_torch_render import K1_TOL, _t
@@ -242,7 +243,7 @@ def test_k1_k2_plain_tile_range_match_jax_kernels(jax_routed, d):
     assert int(meta[1]) == d * t_local > 0 and int(meta[0]) > 0
     out_j = np.asarray(jrast._blend_forward_call_packed(t_local, cap_local, fields, tile_lo, meta))
     out_t = ttiles.forward(*args).numpy()
-    assert out_t.shape == (t_local, 8, 512)
+    assert out_t.shape == (t_local, 8, PIX)
     np.testing.assert_allclose(out_t[:owned, :5], out_j[:owned, :5], **K1_TOL)
     np.testing.assert_array_equal(out_t[:owned, 5:], out_j[:owned, 5:])
     assert not out_t[owned:].any()  # padding tiles stay zero in the plain version

@@ -25,6 +25,7 @@ from c3dgs_tpu_torch.render import binning as tbinning
 from c3dgs_tpu_torch.render import oracle as toracle
 from c3dgs_tpu_torch.render import rasterizer as trast
 from c3dgs_tpu_torch.render import tiles_packed as ttiles
+from c3dgs_tpu_torch.render.tiles import PIX
 from c3dgs_tpu_torch.render.preprocess import Preprocessed as TPrep
 from c3dgs_tpu_torch.render.preprocess import preprocess as tpreprocess
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
@@ -181,7 +182,7 @@ def test_k1_plain_matches_jax_kernel(scene):
     js, fields, tile_lo, meta, b = staged(sc, kw)
     out_j = np.asarray(jrast._blend_forward_call_packed(js.num_tiles, fields.shape[1], fields, tile_lo, meta))
     out_t = ttiles.forward(*k1_args(fields, tile_lo, meta, b)).numpy()
-    assert out_t.shape == out_j.shape == (js.num_tiles, 8, 512)
+    assert out_t.shape == out_j.shape == (js.num_tiles, 8, PIX)
     np.testing.assert_allclose(out_t[:, :5], out_j[:, :5], **K1_TOL)
     np.testing.assert_array_equal(out_t[:, 5:], out_j[:, 5:])
     cap = int(meta[3])
@@ -304,7 +305,7 @@ def test_render_backpropagates_on_both_kernel_families(packed):
 
 def test_assemble_image_complete_mask_without_bg():
     ts = TSettings(width=64, height=48, tanfovx=0.5, tanfovy=0.5)
-    blocks = torch.rand(ts.num_tiles, 8, 512)
+    blocks = torch.rand(ts.num_tiles, 8, PIX)
     complete = torch.tensor([True, False, True, True, False, True])
     color, final_t = trast.assemble_image(blocks, ts, complete)
     js = JSettings(width=64, height=48, tanfovx=0.5, tanfovy=0.5)

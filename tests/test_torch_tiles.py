@@ -78,7 +78,7 @@ def test_k3_plain_matches_jax_kernel(scene):
     np.testing.assert_array_equal(fields_t.numpy(), np.asarray(fields))
     out_j = np.asarray(jax_forward(js, fields, b))
     out_t = ttiles.forward(*k3_args(js, fields, b), js.tiles_x).numpy()
-    assert out_t.shape == out_j.shape == (js.num_tiles, 8, 512)
+    assert out_t.shape == out_j.shape == (js.num_tiles, 8, ttiles.PIX)
     np.testing.assert_allclose(out_t[:, :5], out_j[:, :5], **IMG_TOL)
     np.testing.assert_array_equal(out_t[:, 5:], out_j[:, 5:])
     stopped = int((out_t[:, 5, 0] < np.asarray(b.nchunks)).sum())
