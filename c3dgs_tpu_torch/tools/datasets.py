@@ -30,6 +30,7 @@ from ..eval import metrics
 from ..models import gaussians as gmod
 from ..models import io_ply
 from ..ops import camera_math, sh
+from ..render.capacity import CapacityPolicy
 from ..render.types import settings_from_intrinsic
 
 
@@ -62,12 +63,14 @@ def ring_cameras(num: int = 12, radius: float = 4.0, height: float = 1.2):
     return cams
 
 
-def render_png(path: str, scene: gmod.GaussianScene, extrinsic_vector, intrinsic, device: DeviceLike = None) -> None:
-    """Render one view (black background) and write it as an 8-bit PNG."""
+def render_png(path: str, scene: gmod.GaussianScene, extrinsic_vector, intrinsic, device: DeviceLike = None,
+               policy: Optional[CapacityPolicy] = None) -> None:
+    """Render one view (black background, through `policy` if given) and
+    write it as an 8-bit PNG."""
     from PIL import Image
 
     out = metrics.render_full(scene, extrinsic_vector, settings_from_intrinsic(intrinsic, inference=True),
-                              np.zeros(3), device=device)
+                              np.zeros(3), policy=policy, device=device)
     img = np.clip(out["render"].cpu().numpy(), 0, 1)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     # zlib level 1: a 1080p frame encodes several times faster than at
@@ -90,20 +93,25 @@ def write_blender_dataset(
     scene: Optional[gmod.GaussianScene] = None,
     radius: float = 4.0,
     init_noise: float = 0.05,
+    init_subsample: int = 1,
     device: DeviceLike = None,
 ) -> gmod.GaussianScene:
     """tests/synth.py::write_blender_dataset with the port's renderer:
     train views on a ring of `radius`, test views on one 7.5% wider,
-    points3d.ply the scene's points with seeded noise and DC colors.
-    Returns the scene rendered."""
+    points3d.ply the scene's points with seeded noise and DC colors
+    (synth's DC * 0.28 + 0.5), every `init_subsample`-th of them (an
+    SfM-like sparse init when > 1). Returns the scene rendered."""
     dev = resolve_device(device)
     scene = gt_scene(device=dev) if scene is None else scene
     intrinsic = make_intrinsic(fov, fov, res, res)
+    # one slot bucket for every view, first sized as RasterSettings' auto
+    # capacity (8 per splat); render_full grows it on an overflow
+    policy = CapacityPolicy(initial=8 * scene.capacity)
     for split, num, r in (("train", num_train, radius), ("test", num_test, radius * 1.075)):
         frames = []
         for i, (ev, c2w) in enumerate(ring_cameras(num, radius=r)):
             path = f"{split}/r_{i}.png"
-            render_png(os.path.join(out_dir, path), scene, ev, intrinsic, device=dev)
+            render_png(os.path.join(out_dir, path), scene, ev, intrinsic, device=dev, policy=policy)
             c2w_gl = c2w.copy()
             c2w_gl[:3, 1:3] *= -1  # Blender json stores OpenGL camera axes
             frames.append({"file_path": path, "transform_matrix": c2w_gl.tolist()})
@@ -112,7 +120,9 @@ def write_blender_dataset(
     rng = np.random.default_rng(0)
     pts = scene.xyz.detach().cpu().numpy()
     pts = pts + rng.normal(size=pts.shape).astype(np.float32) * init_noise
-    cols = dc_colors_u8(scene)
+    dc = scene.features_dc.detach().cpu().numpy()[:, 0]
+    cols = (np.clip(dc * 0.28 + 0.5, 0, 1) * 255).astype(np.uint8)
+    pts, cols = pts[::init_subsample], cols[::init_subsample]
     io_ply.write_vertices(
         os.path.join(out_dir, "points3d.ply"),
         {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2], "red": cols[:, 0], "green": cols[:, 1], "blue": cols[:, 2]},

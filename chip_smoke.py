@@ -135,9 +135,28 @@ Phases (any failed check raises, and the script exits non-zero):
      2 per-tile train_steps (the loss falls, the families' losses agree),
      each kernel's launches held to its calls; the image's difference
      from phase 4's 32x16 renders for information; at 16x8 and 32x32,
-     K1-K4 against their plain versions on the small scenes;
- 22. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
-     `<name>@16x16`), the card line, and the final status line.
+     K1-K4 against their plain versions on the small scenes, and their
+     CUDA-event times and bounds on the long-tile scene (small-scene
+     figures: no main path runs these shapes);
+ 22. the compression evidence tools, each in a child process of this
+     script that runs `python -m c3dgs_tpu_torch.tools.<name>` as -m
+     does (python3 chip_smoke.py --tool-phase <name> <cfg>), with its
+     output in a temporary directory: bench_compression at its full
+     protocol (100,000 splats, 150 finetune steps), scale_compress_probe
+     at 1,200,000 splats and 12 views at 1920x1080 with 50 of its 1000
+     finetune steps, convergence_run at the round-5 width (60,000 GT
+     splats, 512x512, 288/32 views, the headline compression) with 8 of
+     220 epochs and 100 of 3000 finetune steps, robustness_runs --only A7
+     with 10 of 60 epochs; every child exits 0, launches K1 and K2, and
+     overflows on no finetune step; every PSNR finite, npz bytes > 0,
+     ratios > 1, the train logs' last epoch the one asked for; codebook
+     colors computed block by block against the dense gather, at the
+     image bar, on the probe's finetuned npz and on its 1.2M-splat scene
+     made codebook-indexed (blocked there by default); ratios, PSNRs, active counts, stage seconds, peak
+     memory, eigh's batches and seconds and the launches printed;
+ 23. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
+     `<name>@16x16`; K1/K2's launches include phase 22's children), the
+     card line, and the final status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -150,10 +169,12 @@ import json
 import math
 import os
 import random
+import runpy
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -270,6 +291,28 @@ def old_bound(bytes_moved: int, stats: dict, sfu_per_alpha: int, flops: int, clo
     one."""
     t_sfu = (stats["pairs"] + sfu_per_alpha * stats["alpha_pairs"]) / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
     return max(bytes_moved / HBM_BYTES_PER_S, t_sfu, flops / FP32_FLOPS) * 1e3
+
+
+def fwd_work(walked: int, n_tiles: int, int_arrays: int, stats: dict):
+    """The least work of a forward kernel (K1, K3) on a frame, as (bytes,
+    special-function operations, fp32 flops): each walked slot's 9 staged
+    f32 rows read once, `int_arrays` (T,) int arrays read, the (T, 8, PIX)
+    blocks written; every walked (pixel, slot) pair's power in fp32, an
+    exp for those the kernel's skip keeps, and a log1p and an exp more for
+    those with alpha > 0. `stats` are the plain version's counts."""
+    return (9 * 4 * walked + int_arrays * 4 * n_tiles + n_tiles * 8 * tiles.PIX * 4,
+            stats["exp_pairs"] + 2 * stats["alpha_pairs"], 12 * stats["pairs"] + 11 * stats["alpha_pairs"])
+
+
+def bwd_work(walked: int, n_tiles: int, grad_cols: int, int_arrays: int, stats: dict):
+    """The least work of a backward kernel (K2, K4), as fwd_work's: each
+    walked slot's 10 staged rows read once, 7 block rows per pixel read,
+    16 gradient rows of `grad_cols` columns written, `int_arrays` (T,) int
+    arrays read; every walked pair's power in fp32, an exp for those the
+    skip keeps, and a log1p, an exp and a reciprocal per pair with
+    alpha > 0."""
+    return (10 * 4 * walked + 7 * 4 * n_tiles * tiles.PIX + 16 * 4 * grad_cols + int_arrays * 4 * n_tiles,
+            stats["exp_pairs"] + 3 * stats["alpha_pairs"], 12 * stats["pairs"] + 40 * stats["alpha_pairs"])
 
 
 # ------------------------------------------------------------------ scenes
@@ -542,21 +585,15 @@ def phase_k1(scene, card_clock_mhz, plain_reps=3, label="phase 3"):
         plain_ms = plain_times(lambda: tiles_packed.forward_plain(*args), plain_reps, plain_first)
 
     # the least time for this frame's work: each staged field slot a tile
-    # walks read once (9 f32 rows), starts/ends read, blocks written; every
-    # walked (pixel, slot) pair's power in fp32, an exp for those the
-    # kernel's skip keeps, and a log1p and an exp more for those with
-    # alpha > 0, on the card's special-function units
+    # walks read once, starts/ends read, blocks written (fwd_work)
     nc = int(meta[0])
     complete = ends < nc * 128
     frz = out_k[:, 5, 0].long()
     walked = int((torch.minimum(frz, ends.long()) - starts.long())[complete].sum())
     walk_lengths("bench frame", starts, ends, frz, complete)
-    t = starts.shape[0]
-    bytes_moved = 9 * 4 * walked + 2 * 4 * t + t * 8 * tiles.PIX * 4
     log(f"  work: {walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
         f"their exp, {stats['alpha_pairs']} with alpha > 0")
-    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 2 * stats["alpha_pairs"],
-                               12 * stats["pairs"] + 11 * stats["alpha_pairs"], card_clock_mhz)
+    bound, bound_by = roofline(*fwd_work(walked, starts.shape[0], 2, stats), card_clock_mhz)
     log(f"  K1 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}")
     return {
@@ -897,14 +934,8 @@ def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
             + f"; column max |value| " + " ".join(f"{v:.2e}" for v in ref.abs().max(0).values.tolist()))
     red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, False), reps=10)
 
-    # the least time for K2's work at this frame: each walked slot's 10
-    # staged rows read once, 7 block rows per pixel read, the 16 gradient
-    # rows of the execution capacity written; every walked (pixel, slot)
-    # pair's power in fp32, an exp for those the kernel's skip keeps, and a
-    # log1p, an exp and a reciprocal per pair with alpha > 0, on the
-    # special-function units
-    t = starts.shape[0]
-    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * tiles.PIX + 16 * 4 * rows + 2 * 4 * t
+    # the least time for K2's work at this frame (bwd_work): the 16
+    # gradient rows of the execution capacity written, starts/ends read
     log(f"  work: {ctx.walked} walked slots, {stats['pairs']} (pixel, slot) pairs, {stats['exp_pairs']} needing "
         f"their exp, {stats['alpha_pairs']} with alpha > 0")
     walk_lengths("bench frame", starts, ends, totals[:, 5, 0], ctx.complete)
@@ -912,8 +943,7 @@ def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
     log(f"  (slot, pixel group) pairs with any alpha > 0: {stats['row_pairs']} of {TILE_X}-pixel rows (K2's first "
         f"warps: {45 * stats['row_pairs']} shuffles at 45 each), {stats['warp_pairs']} of {region} regions (the "
         f"redesign's warps: {12 * stats['warp_pairs']} shuffles at 12 each)")
-    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 3 * stats["alpha_pairs"],
-                               12 * stats["pairs"] + 40 * stats["alpha_pairs"], clock_mhz)
+    bound, bound_by = roofline(*bwd_work(ctx.walked, starts.shape[0], rows, 2, stats), clock_mhz)
     log(f"  K2 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
         f"plain {statistics.median(plain_ms):.1f} ms median of {len(plain_ms)}; reduction (fast_grad) "
         f"{statistics.median(red_ms):.4f} ms median of {len(red_ms)}")
@@ -1165,21 +1195,16 @@ def phase_k3(scene, settings, clock_mhz, plain_reps=3, label="phase 10"):
         ms = cuda_ms(lambda: tiles.launch(*args, deg.tiles_x, out), reps=20)
         plain_ms = plain_times(lambda: tiles.forward_plain(*args, deg.tiles_x), plain_reps, plain_first)
 
-    # the least time for this frame's work: each instance of a window
-    # walked before `stop` read once (9 f32 rows), the four (T,) int
-    # arrays read, the blocks written; every walked (pixel, instance) pair
-    # one exp, and those with alpha > 0 a log1p and an exp more, on the
-    # special-function units
+    # the least time for this frame's work (fwd_work): each instance of a
+    # window walked before `stop` read once, the four (T,) int arrays read
     _, _, starts, ends, nch = args
     stop = out_k[:, 5, 0].long()
     walked = int(torch.minimum((ends - starts).long(), stop * 128).sum())
-    t = starts.shape[0]
-    bytes_moved = 9 * 4 * walked + 4 * 4 * t + t * 8 * tiles.PIX * 4
+    bytes_moved, sfu, flops = fwd_work(walked, starts.shape[0], 4, stats)
     log(f"  work: {walked} walked instances in {int(torch.minimum(stop, nch.long()).sum())} windows, "
         f"{stats['pairs']} (pixel, instance) pairs, {stats['exp_pairs']} needing their exp "
         f"({stats['exp_pairs'] / stats['pairs']:.1%}), {stats['alpha_pairs']} with alpha > 0")
-    flops = 12 * stats["pairs"] + 11 * stats["alpha_pairs"]
-    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 2 * stats["alpha_pairs"], flops, clock_mhz)
+    bound, bound_by = roofline(bytes_moved, sfu, flops, clock_mhz)
     log(f"  K3 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 2, flops, clock_mhz):.4f} ms "
         "when every pair's exp was counted")
     log(f"  K3 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
@@ -1284,18 +1309,13 @@ def phase_k4(scene, ctx, clock_mhz, plain_reps=3, label="phase 11"):
     red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads(got, b.emit_cum, cap, 0, b.grad_total, True),
                      reps=10)
 
-    # the least time for K4's work at this frame: each walked instance's
-    # 10 staged rows read once, 7 block rows per pixel read, the 16 rows of
-    # the grad buffer written, the five (T,) int arrays read; one exp per
-    # walked (pixel, instance) pair, and a log1p, an exp and a reciprocal
-    # per pair with alpha > 0, on the special-function units
-    t = args[2].shape[0]
-    bytes_moved = 10 * 4 * ctx.walked + 7 * 4 * t * tiles.PIX + 16 * 4 * grad_cap + 5 * 4 * t
+    # the least time for K4's work at this frame (bwd_work): the 16 rows
+    # of the grad buffer written, the five (T,) int arrays read
+    bytes_moved, sfu, flops = bwd_work(ctx.walked, args[2].shape[0], grad_cap, 5, stats)
     log(f"  work: {ctx.walked} walked instances, {stats['pairs']} (pixel, instance) pairs, "
         f"{stats['exp_pairs']} needing their exp, {stats['alpha_pairs']} with alpha > 0; "
         f"grad buffer {grad_cap} columns")
-    flops = 12 * stats["pairs"] + 40 * stats["alpha_pairs"]
-    bound, bound_by = roofline(bytes_moved, stats["exp_pairs"] + 3 * stats["alpha_pairs"], flops, clock_mhz)
+    bound, bound_by = roofline(bytes_moved, sfu, flops, clock_mhz)
     log(f"  K4 bound {bound:.4f} ms ({bound_by}); {old_bound(bytes_moved, stats, 3, flops, clock_mhz):.4f} ms "
         "when every pair's exp was counted")
     log(f"  K4 {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}); "
@@ -2521,14 +2541,14 @@ def phase_tiles(scene, cams):
     """Phase 21: K1-K4 built for other tile shapes, each shape in a child
     process of this script (the shape is read at import) that loads the
     scene this one wrote. Raises if a child fails; returns the 16x16
-    child's kernel records."""
+    child's kernel records and the other shapes' small-scene records."""
     log("== phase 21: K1-K4 at other tile shapes, one child process per shape (C3DGS_TILE_X/Y set before import)")
     shutil.rmtree(TILE_DIR, ignore_errors=True)
     TILE_DIR.mkdir(parents=True)
     bench = save_scene(scene, TILE_DIR / "bench.npz")
     np.save(TILE_DIR / f"views_{TILE_X}x{TILE_Y}.npy", torch.stack([c.original_image for c in cams]).cpu().numpy())
     torch.cuda.empty_cache()  # the child shares the card with this process
-    records = []
+    records, small_rows = [], []
     for shape, full in TILE_SHAPES:
         tx, ty = shape.split("x")
         cfg = dict(bench=bench, full=full, refs=str(TILE_DIR / f"views_{TILE_X}x{TILE_Y}.npy"),
@@ -2543,8 +2563,10 @@ def phase_tiles(scene, cams):
         log(f"  {shape}: every check passed in the child, {time.perf_counter() - t0:.1f} s")
         if full:
             records = res["kernels"]
+        else:
+            small_rows += res["small_scene"]
     log(f"  phase 21 card: {smi('name,power.limit')}")
-    return records
+    return records, small_rows
 
 
 def tile_child(shape: str, cfg: dict) -> int:
@@ -2564,16 +2586,18 @@ def tile_child(shape: str, cfg: dict) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"    {line.strip()}")
     out = {"tile": [TILE_X, TILE_Y]}
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     if not cfg["full"]:
         log(f"== {label}: K1-K4 against their plain versions on the small scenes")
         k1_small_scenes()
         k2_small_scenes()
         k3_small_scenes()
         k4_small_scenes()
+        log(f"== {label}: K1-K4 times and bounds on the long-tile scene")
+        out["small_scene"] = small_scene_rows(shape, clock_mhz)
         Path(cfg["out"]).write_text(json.dumps(out))
         return 0
 
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
     scene = load_scene(cfg["bench"])
     k1, settings, ctx = phase_k1(scene, clock_mhz, plain_reps=0, label=label)
     log(f"  {TILE_X}x{TILE_Y}: {settings.num_tiles} tiles, {int((~ctx.b.sent_sorted).sum())} instances at the bench "
@@ -2609,6 +2633,267 @@ def tile_child(shape: str, cfg: dict) -> int:
     return 0
 
 
+def small_scene_rows(shape: str, clock_mhz: float) -> list:
+    """K1-K4 at this child's tile shape on the long-tile scene at 64x48
+    (the heaviest small scene): CUDA-event medians of 20 and the bounds
+    from roofline's counts, with the same byte and operation tallies as
+    phases 3, 7, 10 and 11. Small-scene figures: no main path runs these
+    shapes, so launches stay 0."""
+    means, cov, opacity, colors = long_tile_scene()
+    t = lambda x: torch.as_tensor(x, device=DEVICE)
+    ev = torch.tensor(EV_ID, dtype=torch.float32, device=DEVICE)
+    rows = []
+
+    def row(name, kernel, err, ms, plain_ms, bound):
+        rows.append({"name": f"{name}@{shape}", "route": "cuda", "source": f"c3dgs_tpu_torch/csrc/{name}.cu",
+                     "replaces": kernel.replaces, "launches": 0, "max_abs_err": err, "ms": statistics.median(ms),
+                     "plain_ms": plain_ms[0], "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                     "scene": "long-tile 64x48"})
+        log(f"  {name}@{shape} on the long-tile scene: {statistics.median(ms):.4f} ms median of {len(ms)} "
+            f"(min {min(ms):.4f}); bound {bound[0]:.6f} ms ({bound[1]}); plain {plain_ms[0]:.1f} ms (one run)")
+
+    with torch.no_grad():
+        st = RasterSettings(width=64, height=48, tanfovx=math.tan(0.6), tanfovy=math.tan(0.45))
+        prep = preprocess(t(means), t(cov), t(opacity), ev, st, None, t(colors))
+        args, complete = k1_args(prep, bin_gaussians(prep, st), st, len(means))
+        stats, plain = {}, []
+        err, _, out_k, _ = compare_k1(f"long-tile scene at {shape}", args, stats, plain)
+        fields, tile_lo, meta, starts, ends = args
+        out = torch.empty_like(out_k)
+        ms = cuda_ms(lambda: tiles_packed.launch(fields, meta, starts, ends, out), reps=20)
+        frz = out_k[:, 5, 0].long()
+        walked = int((torch.minimum(frz, ends.long()) - starts.long())[complete].sum())
+        nt = starts.shape[0]
+        bound = roofline(*fwd_work(walked, nt, 2, stats), clock_mhz)
+        row("tiles_packed_fwd", tiles_packed.FORWARD_KERNEL, err, ms, plain, bound)
+
+        g = np.zeros(tuple(out_k.shape), np.float32)
+        g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+        g = t(g)
+        stats, plain = {}, []
+        err, got = compare_k2(f"long-tile scene at {shape}", args, out_k, g, stats, plain)
+        buf = torch.zeros_like(got)
+        ms = cuda_ms(lambda: tiles_packed.launch_backward(fields, meta, starts, ends, out_k, g, buf), reps=20)
+        bound = roofline(*bwd_work(walked, nt, got.shape[1], 2, stats), clock_mhz)
+        row("tiles_packed_bwd", tiles_packed.BACKWARD_KERNEL, err, ms, plain, bound)
+
+        st = dataclasses.replace(st, packed=False)
+        prep = preprocess(t(means), t(cov), t(opacity), ev, st, None, t(colors))
+        args, grad_base = per_tile_args(prep, bin_gaussians(prep, st), st)
+        stats, plain = {}, []
+        err, out_k = compare_k3(f"long-tile scene at {shape}, per-tile", args, st.tiles_x, stats, plain)
+        out = torch.empty_like(out_k)
+        ms = cuda_ms(lambda: tiles.launch(*args, st.tiles_x, out), reps=20)
+        _, _, starts, ends, nch = args
+        walked = int(torch.minimum((ends - starts).long(), out_k[:, 5, 0].long() * 128).sum())
+        nt = starts.shape[0]
+        bound = roofline(*fwd_work(walked, nt, 4, stats), clock_mhz)
+        row("tiles_fwd", tiles.FORWARD_KERNEL, err, ms, plain, bound)
+
+        grad_cap = st.resolve_grad_cap(len(means))
+        g = np.zeros(tuple(out_k.shape), np.float32)
+        g[:, :4] = np.random.default_rng(0).normal(size=g[:, :4].shape)
+        g = t(g)
+        stats, plain = {}, []
+        err, got = compare_k4(f"long-tile scene at {shape}, per-tile", args, grad_base, out_k, g, st.tiles_x,
+                              grad_cap, stats, plain)
+        buf = torch.zeros_like(got)
+        ms = cuda_ms(lambda: tiles.launch_backward(*args, grad_base, out_k, g, st.tiles_x, buf), reps=20)
+        bound = roofline(*bwd_work(walked, nt, grad_cap, 5, stats), clock_mhz)
+        row("tiles_bwd", tiles.BACKWARD_KERNEL, err, ms, plain, bound)
+    return rows
+
+
+# ------------------------------------------------------------ phase 22
+# (tool, its arguments, its environment, the finetune steps it runs):
+# each tool at its own width, depth cut as PERF.md §4 lists
+TOOL_RUNS = (
+    ("bench_compression", [], {"CR_N": "100000", "CR_FT": "150"}, 150),
+    ("scale_compress_probe", ["--finetune_iters", "50"], {}, 50),
+    ("convergence_run", ["--epochs", "8"], {"C3DGS_FINETUNE_ITERS": "100"}, 100),
+    ("robustness_runs", ["--only", "A7", "--epochs", "10"], {}, 0),
+)
+TOOL_OUT = {"bench_compression": "--out_dir", "scale_compress_probe": "--out_dir", "convergence_run": "--out_root",
+            "robustness_runs": "--out_root"}
+
+
+def tool_child(name: str, cfg: dict) -> int:
+    """Phase 22 in a child process: `python -m c3dgs_tpu_torch.tools.<name>
+    <argv>`, run as -m runs it (runpy, as __main__), with every finetune
+    step's metrics and each eigh call's matrices and seconds recorded; the
+    kernel counts, the steps' overflows and the peak memory go to
+    cfg["out"]."""
+    steps, eighs = [], []
+    real_finetune, real_eigh = finetune.finetune, quat._eigh
+
+    def recorded_finetune(*a, history=None, **kw):
+        hist = []
+        out = real_finetune(*a, history=hist, **kw)
+        steps.extend(hist)
+        if history is not None:
+            history.extend(hist)
+        return out
+
+    def timed_eigh(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eigh(m)
+        torch.cuda.synchronize()
+        eighs.append((m.reshape(-1, 3, 3).shape[0], time.perf_counter() - t0))
+        return out
+
+    finetune.finetune, quat._eigh = recorded_finetune, timed_eigh
+    module = f"c3dgs_tpu_torch.tools.{name}"
+    sys.argv = [module, *cfg["argv"]]
+    t0 = time.perf_counter()
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    Path(cfg["out"]).write_text(json.dumps({
+        "seconds": time.perf_counter() - t0,
+        "launches": launches(),
+        "finetune_steps": len(steps),
+        "max_overflow": max((s["overflow"] for s in steps), default=0),
+        "max_grad_overflow": max((s["grad_overflow"] for s in steps), default=0),
+        "finetune_ms": statistics.median(s["ms"] for s in steps) if steps else None,
+        "finetune_instances": [steps[0]["num_instances"], steps[-1]["num_instances"]] if steps else None,
+        "eigh": {"calls": len(eighs), "matrices": sum(n for n, _ in eighs), "seconds": sum(s for _, s in eighs),
+                 "batches": sum(-(-n // quat.EIGH_BATCH) for n, _ in eighs)},
+        "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return 0
+
+
+def argv_n(argv: list, flag: str, default):
+    return argv[argv.index(flag) + 1] if flag in argv else default
+
+
+def finite(*values) -> bool:
+    return all(v is not None and math.isfinite(v) for v in values)
+
+
+def check_tool(name: str, out: Path, rec: dict, expect_steps: int, log_text: str) -> None:
+    """Phase 22's checks of one tool's run; raises on the first failure,
+    logs the figures."""
+    k1, k2 = rec["launches"]["tiles_packed_fwd"], rec["launches"]["tiles_packed_bwd"]
+    log(f"  {name}: {rec['seconds']:.1f} s in the child; K1 {k1} launches, K2 {k2}; peak {rec['peak_gb']:.2f} GiB; "
+        f"{rec['finetune_steps']} finetune steps at {rec['finetune_ms']} ms median, instances first/last "
+        f"{rec['finetune_instances']}, max overflow {rec['max_overflow']}, max grad_overflow "
+        f"{rec['max_grad_overflow']}")
+    assert k1 > 0 and k2 > 0, f"{name}: the run launched no K1 or no K2"
+    assert rec["finetune_steps"] == expect_steps, (name, rec["finetune_steps"], expect_steps)
+    assert rec["max_overflow"] == 0 and rec["max_grad_overflow"] == 0, f"{name}: a finetune step overflowed"
+    if name == "bench_compression":
+        r = json.loads((out / "bench_compression.json").read_text())
+        log(f"  bench_compression: ratio {r['ratio']:.4f}x ({r['ply_bytes']} B .ply, {r['size_bytes']} B .npz), "
+            f"PSNR vs uncompressed {r['psnr']:.4f} dB (views {[round(p, 3) for p in r['psnrs']]}), "
+            f"{r['splats_kept']} of {r['n_splats']} splats kept; line {json.dumps({k: r[k] for k in list(r)[:6]})}")
+        assert finite(r["psnr"], *r["psnrs"]) and r["size_bytes"] > 0 and r["ratio"] > 1, r
+    elif name == "scale_compress_probe":
+        r = json.loads((out / "SCALE_COMPRESS.json").read_text())
+        gt = [line for line in log_text.splitlines() if line.startswith("# GT renders")]
+        log(f"  scale_compress_probe: {r['n_splats']} splats -> {r['active_after_prune']} active; fidelity "
+            f"{r['fidelity_vs_uncompressed_psnr']:.4f} dB, SSIM {r['ssim']:.4f}, base PSNR {r['uncompressed_psnr']}; "
+            f"{r['size_bytes']} B npz, ratio vs .ply {r['compression_ratio_vs_ply']:.4f}x; peak "
+            f"{r['peak_hbm_gb']} GiB; times {json.dumps(r['times'])}; {gt[0] if gt else ''}")
+        e = rec["eigh"]
+        log(f"  eigh inside clustering: {e['calls']} calls, {e['matrices']} matrices in {e['batches']} batches of "
+            f"<= {quat.EIGH_BATCH}, {e['seconds']:.3f} s")
+        assert finite(r["psnr"], r["fidelity_vs_uncompressed_psnr"]) and r["size_bytes"] > 0, r
+        assert r["compression_ratio_vs_ply"] > 1, r
+    elif name == "convergence_run":
+        r = json.loads((out / "convergence.json").read_text())
+        res, log_rows = r["results"], [json.loads(x) for x in open(out / "model" / "train_log.jsonl")]
+        log(f"  convergence_run: held-out curve " + ", ".join(f"{e['epoch']}: {e['test_psnr']:.3f}"
+                                                               for e in r["held_out_curve"])
+            + f"; final train EMA {log_rows[-1]['ema_psnr']:.3f} dB, {log_rows[-1]['active']} active, "
+            f"{r['seconds_per_epoch']:.2f} s per epoch")
+        log(f"  convergence_run compression: {res['psnr']:.4f} dB compressed, {res['uncompressed_psnr']:.4f} "
+            f"uncompressed, drop {res['psnr_drop']:.4f} dB, SSIM {res['ssim']:.4f}; {res['ply_size_bytes']} B .ply, "
+            f"{res['size_bytes']} B npz, ratio {res['compression_ratio']:.4f}x; times {json.dumps(r['times'])}")
+        log(f"  convergence_run log: {log_text.count('[capacity]')} [capacity] lines, "
+            f"{log_text.count('[densify] dropped')} [densify] dropped lines")
+        assert log_rows[-1]["epoch"] == r["protocol"]["epochs"] - 1, log_rows[-1]
+        assert finite(res["psnr"], res["uncompressed_psnr"], *(e["test_psnr"] for e in r["held_out_curve"])), r
+        assert res["size_bytes"] > 0 and res["compression_ratio"] > 1, res
+    else:
+        r = json.loads((out / "ROBUSTNESS.json").read_text())
+        log_rows = [json.loads(x) for x in open(out / "A7" / "model" / "train_log.jsonl")]
+        for run in r["runs"]:
+            log(f"  robustness_runs {run['scene']}{run['seed']}: final test {run['final_test_psnr']:.4f} dB, "
+                f"train EMA {run['final_train_ema']:.4f}, diverged {run['diverged']}; curve "
+                + ", ".join(f"{e['epoch']}: {e['test_psnr']:.3f}" for e in run["eval_curve"]))
+        assert log_rows[-1]["epoch"] == r["protocol"]["epochs"] - 1, log_rows[-1]
+        assert finite(*(run["final_test_psnr"] for run in r["runs"])), r
+
+
+def blocked_colors_check(npz: Path, n: int) -> None:
+    """Codebook colors evaluated block by block against the dense gather,
+    at the image bar (atol 2e-5, rtol 1e-4), on probe view 0 at 1920x1080:
+    the finetuned scene from disk (blocked_colors True against False), and
+    the n-splat probe scene made codebook-indexed (identity indices), where
+    render_scene engages the blocked path itself (at >=
+    BLOCKED_COLORS_MIN splats), against blocked_colors=False."""
+    from c3dgs_tpu_torch.tools import scale_compress_probe as probe
+
+    settings, _ = probe.probe_settings(1920, 1080)
+    ev = probe.ring_extrinsics(12)[0]
+    bg = torch.zeros(3, device=DEVICE)
+    t0 = time.perf_counter()
+    full = probe.make_scene(n, device=DEVICE).to_indexed()
+    log(f"  probe scene rebuilt in {time.perf_counter() - t0:.1f} s: {full.capacity} splats, indexed")
+    for name, scene, blocked in (("finetuned npz", io_npz.load_npz(str(npz), device=DEVICE), True),
+                                 (f"{n}-splat scene, identity indices", full, None)):
+        auto = scene.capacity >= trainer.BLOCKED_COLORS_MIN
+        assert blocked or auto, "the blocked path would not engage"
+        policy = CapacityPolicy()
+        with torch.no_grad():
+            probe.render_capped(scene, ev, settings, policy, bg, device=DEVICE)
+            st = policy.apply(settings)
+            got = trainer.render_scene(scene, ev, st, bg, blocked_colors=blocked, device=DEVICE)
+            ref = trainer.render_scene(scene, ev, st, bg, blocked_colors=False, device=DEVICE)
+        assert int(got["overflow"]) == 0 and int(ref["overflow"]) == 0
+        log(f"  {name}: {scene.capacity} splats (blocked {'by default' if auto else 'when asked'}), "
+            f"{int(ref['num_instances'])} instances")
+        check_close(f"{name}: blocked vs dense colors, view 0 at 1920x1080", got["render"], ref["render"], 2e-5,
+                    1e-4)
+
+
+def phase_tools() -> dict:
+    """Phase 22: the four compression evidence tools on the card, each in a
+    child process with its output in a temporary directory; returns their
+    summed kernel launches."""
+    log("== phase 22: the compression evidence tools (bench_compression, scale_compress_probe, convergence_run, "
+        "robustness_runs), one child process each")
+    torch.cuda.empty_cache()  # the children share the card with this process
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        for name, argv, env, ft_steps in TOOL_RUNS:
+            out = Path(tmp) / name
+            out.mkdir()
+            cfg = dict(argv=[*argv, TOOL_OUT[name], str(out), "--device", DEVICE], out=str(out / "record.json"))
+            log_path = out / "stdout.log"
+            t0 = time.perf_counter()
+            with open(log_path, "w") as f:
+                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tool-phase", name,
+                                       json.dumps(cfg)], env=dict(os.environ, **env), stdout=f,
+                                      stderr=subprocess.STDOUT, timeout=900)
+            text = log_path.read_text()
+            if proc.returncode != 0:
+                log(text[-4000:])
+                raise RuntimeError(f"phase 22: {name} exited {proc.returncode}")
+            log(f"  {name} {' '.join(argv)} {' '.join(f'{k}={v}' for k, v in env.items())}: exit 0 in "
+                f"{time.perf_counter() - t0:.1f} s")
+            rec = json.loads(Path(cfg["out"]).read_text())
+            check_tool(name, out, rec, ft_steps, text)
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+            if name == "scale_compress_probe":
+                blocked_colors_check(out / "scale_compress.npz", int(argv_n(argv, "--n", 1_200_000)))
+    log(f"  phase 22 launches: K1 {total['tiles_packed_fwd']}, K2 {total['tiles_packed_bwd']}; card "
+        f"{smi('name,power.limit')}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -2616,6 +2901,8 @@ def main() -> int:
     assert "jax" not in sys.modules and "c3dgs_tpu" not in sys.modules
     if sys.argv[1:2] == ["--tile-phase"]:
         return tile_child(sys.argv[2], json.loads(sys.argv[3]))
+    if sys.argv[1:2] == ["--tool-phase"]:
+        return tool_child(sys.argv[2], json.loads(sys.argv[3]))
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2657,7 +2944,12 @@ def main() -> int:
     multi = phase_multi(scene, settings)
     k1["launches"] += multi[k1["name"]]  # every rank's sharded and reference renders and steps
     k2["launches"] += multi[k2["name"]]
-    other_shape = phase_tiles(scene, cams)
+    other_shape, small_rows = phase_tiles(scene, cams)
+    del scene, cams, compressed, ctx, ctx_pt
+    tools = phase_tools()
+    k1["launches"] += tools[k1["name"]]  # the tools' GT renders, train steps, evals, sensitivity, finetune
+    k2["launches"] += tools[k2["name"]]  # their train steps, sensitivity and finetune
+    log("small-scene kernel figures at 16x8 and 32x32 (no main path): " + json.dumps(small_rows))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes, *other_shape]}), flush=True)
     print(card, flush=True)

@@ -6,7 +6,8 @@ too), the per-tile wrappers' refusal of misaligned fields, the DMA probes
 P1-P3, the CUDA render's gradients against the
 port's oracle and CPU path in both kernel families, the SSIM gradient
 in fp32, and the compression path: an indexed scene's render and
-codebook gradients against the CPU path, bitwise-repeatable VQ and
+codebook gradients against the CPU path, blocked codebook colors past
+2^20 splats against the dense gather, bitwise-repeatable VQ and
 codebook gradients, fp32 nearest-codebook search, two finetune steps and
 eigh past cuSOLVER's batch limit; the train CLI on the card against the
 CPU; the pose gradient and a camera_step, and LPIPS, on the card against
@@ -937,6 +938,30 @@ def test_indexed_render_on_card_matches_cpu():
             o = trainer.render_scene(card, cams[1].extrinsic_vector, s, np.zeros(3), blocked_colors=blocked,
                                      device="cuda")
             torch.testing.assert_close(o["render"].cpu(), out["cpu"][0], **IMG_TOL)
+
+
+@pytest.mark.gpu
+def test_blocked_colors_engage_past_2_20_on_card(monkeypatch):
+    """A codebook-indexed scene of 2^20 + 1 splats on the card: render_scene
+    evaluates its colors block by block on its own (BLOCKED_COLORS_MIN),
+    and the image equals the dense gather's at atol 2e-5 / rtol 1e-4."""
+    _need_card()
+    n = trainer.BLOCKED_COLORS_MIN + 1
+    rng = np.random.default_rng(5)
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(4, 8, n)], 1).astype(np.float32)
+    scene = gaussians.from_point_cloud(pts, rng.random((n, 3)).astype(np.float32), quantization=False, device="cuda")
+    codebook = rng.normal(size=(256, 16, 3)).astype(np.float32) * 0.3
+    scene = scene.set_color_indexed(codebook, torch.as_tensor(rng.integers(0, 256, n), device="cuda"))
+    scene.active_sh_degree = 3
+    calls = []
+    real = trainer.sh_ops.sh_to_rgb_indexed_blocked
+    monkeypatch.setattr(trainer.sh_ops, "sh_to_rgb_indexed_blocked", lambda *a, **k: calls.append(1) or real(*a, **k))
+    settings = RasterSettings(width=256, height=192, tanfovx=math.tan(0.5), tanfovy=math.tan(0.4), sh_degree=3)
+    with torch.no_grad():
+        auto, dense = (trainer.render_scene(scene, EV, settings, np.zeros(3), blocked_colors=b, device="cuda")
+                       for b in (None, False))
+    assert len(calls) == 1 and int(auto["overflow"]) == 0 and int(auto["num_instances"]) > n // 2
+    torch.testing.assert_close(auto["render"], dense["render"], **IMG_TOL)
 
 
 @pytest.mark.gpu
