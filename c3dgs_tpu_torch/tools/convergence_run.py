@@ -21,8 +21,7 @@ codebooks, keep quantiles 0.985/0.95, 3000 finetune steps).
 
 Environment: C3DGS_FORCE_RETRAIN=1 trains again over an existing model
 (otherwise a trained model is reused, so a compress-stage failure does not
-cost the training); C3DGS_FINETUNE_ITERS overrides the finetune steps of
-the compression config (a depth cut for smoke runs).
+cost the training).
 """
 from __future__ import annotations
 
@@ -86,14 +85,9 @@ def compress_argv(fast: bool) -> list:
     rows dominate the npz, so 2^11 entries and keep quantiles raised to
     0.985 / 0.95; the QAT finetune absorbs the quality cost)."""
     if fast:
-        argv = ["--finetune_iterations", "10", "--color_cluster_iterations", "3", "--gaussian_cluster_iterations", "5"]
-    else:
-        argv = ["--color_codebook_size", "2048", "--gaussian_codebook_size", "2048", "--color_keep_quantile", "0.985",
-                "--gaussian_keep_quantile", "0.95", "--finetune_iterations", "3000"]
-    ft = os.environ.get("C3DGS_FINETUNE_ITERS")
-    if ft:
-        argv[argv.index("--finetune_iterations") + 1] = str(int(ft))
-    return argv
+        return ["--finetune_iterations", "10", "--color_cluster_iterations", "3", "--gaussian_cluster_iterations", "5"]
+    return ["--color_codebook_size", "2048", "--gaussian_codebook_size", "2048", "--color_keep_quantile", "0.985",
+            "--gaussian_keep_quantile", "0.95", "--finetune_iterations", "3000"]
 
 
 def summary(log: list, results: dict, times: dict, protocol: dict, model: str) -> tuple:

@@ -63,10 +63,17 @@ def ring_cameras(num: int = 12, radius: float = 4.0, height: float = 1.2):
     return cams
 
 
-def render_png(path: str, scene: gmod.GaussianScene, extrinsic_vector, intrinsic, device: DeviceLike = None,
-               policy: Optional[CapacityPolicy] = None) -> None:
-    """Render one view (black background, through `policy` if given) and
-    write it as an 8-bit PNG."""
+def dataset_policy(scene: gmod.GaussianScene) -> CapacityPolicy:
+    """One slot bucket for every view of a dataset, first sized as
+    RasterSettings' auto capacity (8 per splat); render_full grows it on an
+    overflow."""
+    return CapacityPolicy(initial=8 * scene.capacity)
+
+
+def render_png(path: str, scene: gmod.GaussianScene, extrinsic_vector, intrinsic, policy: CapacityPolicy,
+               device: DeviceLike = None) -> None:
+    """Render one view (black background, through the dataset's `policy`)
+    and write it as an 8-bit PNG."""
     from PIL import Image
 
     out = metrics.render_full(scene, extrinsic_vector, settings_from_intrinsic(intrinsic, inference=True),
@@ -104,14 +111,12 @@ def write_blender_dataset(
     dev = resolve_device(device)
     scene = gt_scene(device=dev) if scene is None else scene
     intrinsic = make_intrinsic(fov, fov, res, res)
-    # one slot bucket for every view, first sized as RasterSettings' auto
-    # capacity (8 per splat); render_full grows it on an overflow
-    policy = CapacityPolicy(initial=8 * scene.capacity)
+    policy = dataset_policy(scene)
     for split, num, r in (("train", num_train, radius), ("test", num_test, radius * 1.075)):
         frames = []
         for i, (ev, c2w) in enumerate(ring_cameras(num, radius=r)):
             path = f"{split}/r_{i}.png"
-            render_png(os.path.join(out_dir, path), scene, ev, intrinsic, device=dev, policy=policy)
+            render_png(os.path.join(out_dir, path), scene, ev, intrinsic, policy, device=dev)
             c2w_gl = c2w.copy()
             c2w_gl[:3, 1:3] *= -1  # Blender json stores OpenGL camera axes
             frames.append({"file_path": path, "transform_matrix": c2w_gl.tolist()})
@@ -186,8 +191,9 @@ def write_colmap_dataset(
     dev = resolve_device(device)
     intrinsic = make_intrinsic(fovx, fovy, width, height)
     names = [f"view_{i:03d}.png" for i in range(len(extrinsics))]
+    policy = dataset_policy(scene)
     for ev, name in zip(extrinsics, names):
-        render_png(os.path.join(out_dir, "images", name), scene, ev, intrinsic, device=dev)
+        render_png(os.path.join(out_dir, "images", name), scene, ev, intrinsic, policy, device=dev)
     active = scene.active.cpu().numpy()
     write_colmap_model(
         os.path.join(out_dir, "sparse", "0"), width, height,

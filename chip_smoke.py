@@ -145,11 +145,14 @@ Phases (any failed check raises, and the script exits non-zero):
      protocol (100,000 splats, 150 finetune steps), scale_compress_probe
      at 1,200,000 splats and 12 views at 1920x1080 with 50 of its 1000
      finetune steps, convergence_run at the round-5 width (60,000 GT
-     splats, 512x512, 288/32 views, the headline compression) with 8 of
-     220 epochs and 100 of 3000 finetune steps, robustness_runs --only A7
-     with 10 of 60 epochs; every child exits 0, launches K1 and K2, and
+     splats, 512x512, 288/32 views, the headline compression) with the
+     first 8 of the 220-epoch schedule's epochs and 100 of 3000 finetune
+     steps, robustness_runs --only A7 with the first 10 of 60 epochs (a
+     train CLI --iterations that keeps the full run's densify and reset
+     epochs); every child exits 0, launches K1 and K2, and
      overflows on no finetune step; every PSNR finite, npz bytes > 0,
-     ratios > 1, the train logs' last epoch the one asked for; codebook
+     ratios > 1, the train logs' last epoch the one asked for, more
+     trained splats than codebook entries; codebook
      colors computed block by block against the dense gather, at the
      image bar, on the probe's finetuned npz and on its 1.2M-splat scene
      made codebook-indexed (blocked there by default); ratios, PSNRs, active counts, stage seconds, peak
@@ -168,8 +171,8 @@ import io
 import json
 import math
 import os
+import importlib
 import random
-import runpy
 import shutil
 import statistics
 import subprocess
@@ -2705,26 +2708,34 @@ def small_scene_rows(shape: str, clock_mhz: float) -> list:
 
 
 # ------------------------------------------------------------ phase 22
-# (tool, its arguments, its environment, the finetune steps it runs):
-# each tool at its own width, depth cut as PERF.md §4 lists
+# (tool, its arguments, its environment, the finetune steps it runs, and
+# for a cut training (the full run's epochs, the train CLI's --iterations)):
+# each tool at its own width, depth cut as PERF.md §4 lists. A cut training
+# runs the first epochs of the full run's schedule: the iteration budget
+# puts densify, opacity resets and SH warm-up on the full run's epochs
+# (cli/train.py::epoch_schedule), so the 8-epoch scene keeps its ~20k
+# splats and convergence_run's 2048-entry codebooks see more rows than
+# entries. convergence_run's finetune is cut in its compress argv.
 TOOL_RUNS = (
-    ("bench_compression", [], {"CR_N": "100000", "CR_FT": "150"}, 150),
-    ("scale_compress_probe", ["--finetune_iters", "50"], {}, 50),
-    ("convergence_run", ["--epochs", "8"], {"C3DGS_FINETUNE_ITERS": "100"}, 100),
-    ("robustness_runs", ["--only", "A7", "--epochs", "10"], {}, 0),
+    ("bench_compression", [], {"CR_N": "100000", "CR_FT": "150"}, 150, None),
+    ("scale_compress_probe", ["--finetune_iters", "50"], {}, 50, None),
+    ("convergence_run", ["--epochs", "8"], {}, 100, (220, 1090)),
+    ("robustness_runs", ["--only", "A7", "--epochs", "10"], {}, 0, (60, 5000)),
 )
 TOOL_OUT = {"bench_compression": "--out_dir", "scale_compress_probe": "--out_dir", "convergence_run": "--out_root",
             "robustness_runs": "--out_root"}
 
 
 def tool_child(name: str, cfg: dict) -> int:
-    """Phase 22 in a child process: `python -m c3dgs_tpu_torch.tools.<name>
-    <argv>`, run as -m runs it (runpy, as __main__), with every finetune
-    step's metrics and each eigh call's matrices and seconds recorded; the
-    kernel counts, the steps' overflows and the peak memory go to
-    cfg["out"]."""
+    """Phase 22 in a child process: what `python -m
+    c3dgs_tpu_torch.tools.<name> <argv>` runs (the module's main() on
+    sys.argv), with every finetune step's metrics and each eigh call's
+    matrices and seconds recorded, and the depth cut: cfg["iterations"]
+    appended to every train CLI call, cfg["finetune_iterations"] put in
+    convergence_run's compress argv. The kernel counts, the steps'
+    overflows and the peak memory go to cfg["out"]."""
     steps, eighs = [], []
-    real_finetune, real_eigh = finetune.finetune, quat._eigh
+    real_finetune, real_eigh, real_train = finetune.finetune, quat._eigh, cli_train.main
 
     def recorded_finetune(*a, history=None, **kw):
         hist = []
@@ -2744,9 +2755,21 @@ def tool_child(name: str, cfg: dict) -> int:
 
     finetune.finetune, quat._eigh = recorded_finetune, timed_eigh
     module = f"c3dgs_tpu_torch.tools.{name}"
+    tool = importlib.import_module(module)
+    if cfg.get("iterations"):
+        cli_train.main = lambda argv: real_train([*argv, "--iterations", str(cfg["iterations"])])
+    if cfg.get("finetune_iterations"):
+        real_argv = tool.compress_argv
+
+        def cut_argv(fast):
+            argv = real_argv(fast)
+            argv[argv.index("--finetune_iterations") + 1] = str(cfg["finetune_iterations"])
+            return argv
+
+        tool.compress_argv = cut_argv
     sys.argv = [module, *cfg["argv"]]
     t0 = time.perf_counter()
-    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    tool.main()
     torch.cuda.synchronize()
     Path(cfg["out"]).write_text(json.dumps({
         "seconds": time.perf_counter() - t0,
@@ -2813,6 +2836,9 @@ def check_tool(name: str, out: Path, rec: dict, expect_steps: int, log_text: str
         log(f"  convergence_run log: {log_text.count('[capacity]')} [capacity] lines, "
             f"{log_text.count('[densify] dropped')} [densify] dropped lines")
         assert log_rows[-1]["epoch"] == r["protocol"]["epochs"] - 1, log_rows[-1]
+        books = max(int(argv_n(r["protocol"]["compress_argv"], f, 0))
+                    for f in ("--color_codebook_size", "--gaussian_codebook_size"))
+        assert log_rows[-1]["active"] > books, f"a degenerate VQ: {log_rows[-1]['active']} splats, {books} entries"
         assert finite(res["psnr"], res["uncompressed_psnr"], *(e["test_psnr"] for e in r["held_out_curve"])), r
         assert res["size_bytes"] > 0 and res["compression_ratio"] > 1, res
     else:
@@ -2867,10 +2893,17 @@ def phase_tools() -> dict:
     torch.cuda.empty_cache()  # the children share the card with this process
     total = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
-        for name, argv, env, ft_steps in TOOL_RUNS:
+        for name, argv, env, ft_steps, schedule in TOOL_RUNS:
             out = Path(tmp) / name
             out.mkdir()
             cfg = dict(argv=[*argv, TOOL_OUT[name], str(out), "--device", DEVICE], out=str(out / "record.json"))
+            if schedule:
+                full, cfg["iterations"] = schedule
+                cut = int(argv_n(argv, "--epochs", full))
+                assert cli_train.epoch_schedule(OptimizationParams(epochs=cut, iterations=cfg["iterations"])) == \
+                    cli_train.epoch_schedule(OptimizationParams(epochs=full)), (name, schedule)
+            if name == "convergence_run":
+                cfg["finetune_iterations"] = ft_steps
             log_path = out / "stdout.log"
             t0 = time.perf_counter()
             with open(log_path, "w") as f:
@@ -2881,8 +2914,9 @@ def phase_tools() -> dict:
             if proc.returncode != 0:
                 log(text[-4000:])
                 raise RuntimeError(f"phase 22: {name} exited {proc.returncode}")
-            log(f"  {name} {' '.join(argv)} {' '.join(f'{k}={v}' for k, v in env.items())}: exit 0 in "
-                f"{time.perf_counter() - t0:.1f} s")
+            cuts = " ".join(f"{k}={v}" for k, v in (*env.items(), *((k, cfg[k]) for k in
+                                                                  ("iterations", "finetune_iterations") if k in cfg)))
+            log(f"  {name} {' '.join(argv)} {cuts}: exit 0 in {time.perf_counter() - t0:.1f} s")
             rec = json.loads(Path(cfg["out"]).read_text())
             check_tool(name, out, rec, ft_steps, text)
             for k, v in rec["launches"].items():

@@ -264,6 +264,8 @@ def test_scale_probe_runs_the_pipeline(tmp_path, monkeypatch):
     )
     assert list(out) == jax_keys + ["card"] and out["card"] == "cpu"
     assert math.isfinite(out["psnr"]) and out["size_bytes"] > 0 and out["compression_ratio_vs_ply"] > 1
+    # the GT renders are the base scene's eval renders
+    assert out["uncompressed_psnr"] == math.inf and out["psnr_drop"] is None
     assert 0 < out["active_after_prune"] <= 3000 and os.path.exists(out["npz"])
     assert list(out["times"]) == ["sensitivity_calculation", "clustering", "finetune", "encode", "eval", "total"]
 
