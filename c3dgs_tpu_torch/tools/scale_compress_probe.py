@@ -109,7 +109,7 @@ def probe_settings(width: int, height: int) -> tuple:
     1.2 both ways, the settings derived from the f32 intrinsic as
     render_and_eval derives them. (The JAX tool renders its GT at
     tan(0.6) of the double 0.6, 5e-8 off tan(f32(1.2) / 2): its base scene
-    then reads a finite PSNR, 166 dB at 3000 splats and 64x32 on the CPU.)"""
+    then reads a finite PSNR.)"""
     intrinsic = np.zeros((3, 3), np.float32)
     intrinsic[0, 0] = 1.2
     intrinsic[1, 1] = 1.2
