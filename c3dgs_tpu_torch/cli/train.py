@@ -108,12 +108,12 @@ def training(
                     state, cam.extrinsic_vector, cam.original_image, settings, bg, opt_p, spatial_lr_scale,
                     device=dev,
                 )
-                if capacity.update(
-                    int(m["num_instances"]), int(m["overflow"]), int(m["grad_total"]), int(m["grad_overflow"])
-                ):
+                n_inst, overflow = int(m["num_instances"]), int(m["overflow"])
+                if capacity.update(n_inst, overflow, int(m["grad_total"]), int(m["grad_overflow"])):
                     # this frame trained with clipped instances (a soft
                     # degradation); later frames render at the grown bucket
                     print(f"[capacity] overflow -> bucket {capacity.capacity}")
+                capacity.note_clamped(f"step {it}", n_inst, overflow)
                 it += 1
                 loss = float(m["loss"])
                 if not np.isfinite(loss):

@@ -68,12 +68,9 @@ def training(model_p, opt_p, args):
                 js, i, cam.original_image, settings, bg, opt_p, scene.cameras_extent, args.pose_lr,
                 args.anchor_weight, device=dev,
             )
-            capacity.update(
-                int(metrics["num_instances"]),
-                int(metrics["overflow"]),
-                int(metrics["grad_total"]),
-                int(metrics["grad_overflow"]),
-            )
+            n_inst, overflow = int(metrics["num_instances"]), int(metrics["overflow"])
+            capacity.update(n_inst, overflow, int(metrics["grad_total"]), int(metrics["grad_overflow"]))
+            capacity.note_clamped(f"step {it}", n_inst, overflow)
             it += 1
             loss = float(metrics["loss"])
             ema = loss if ema is None else 0.6 * ema + 0.4 * loss

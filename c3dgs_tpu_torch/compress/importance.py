@@ -71,6 +71,7 @@ def calc_importance(
             )
             if not policy.update(n_inst, overflow):
                 break
+        policy.check_whole(n_inst, overflow)
         accum_dc += g_dc
         accum_rest += g_rest
         accum_cov = g_cov if accum_cov is None else accum_cov + g_cov

@@ -1,5 +1,7 @@
-"""COLMAP sparse-reconstruction parsers (binary + text), numpy only (port
-of c3dgs_tpu/data/colmap.py, which is numpy too).
+"""COLMAP sparse-reconstruction parsers (binary + text; port of
+c3dgs_tpu/data/colmap.py). load_model reads points3D.bin through the
+host codec (native.py), as the JAX package does; read_points3D_binary is
+its numpy version.
 
 Parity: scene/colmap_loader.py — read_extrinsics_binary (:180),
 read_intrinsics_binary (:215), read_points3D_binary (:125), the text
@@ -14,6 +16,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from .. import native
 
 CameraModel = collections.namedtuple("CameraModel", ["model_id", "model_name", "num_params"])
 ColmapCamera = collections.namedtuple("Camera", ["id", "model", "width", "height", "params"])
@@ -180,9 +184,9 @@ def load_model(sparse_dir):
         cams = read_intrinsics_text(sparse / "cameras.txt")
         imgs = read_extrinsics_text(sparse / "images.txt")
     try:
-        # the numpy parser; the JAX package's native C++ codec gives the
-        # same arrays faster (tests/test_native.py) and is not ported yet
-        pts = read_points3D_binary(sparse / "points3D.bin")
+        # the host codec (csrc/codec.cpp): per-point Python parsing is slow
+        # at 5M+ points; read_points3D_binary gives the same arrays
+        pts = native.read_points3d_binary(sparse / "points3D.bin")
     except FileNotFoundError:
         try:
             pts = read_points3D_text(sparse / "points3D.txt")

@@ -25,18 +25,20 @@ from .lpips import UNAVAILABLE_REASON as LPIPS_UNAVAILABLE_REASON
 def render_full(scene, extrinsic_vector, settings, bg, policy=None, device: DeviceLike = None):
     """Render with an overflow-free guarantee: if the frame's (gaussian,
     tile) instances exceed the capacity bucket, grow it and render again
-    (at most 8 tries). The returned dict carries `renders`, the number of
-    renders the frame took. Only the slot bucket follows the frame: as in
-    the JAX package the grad bucket stays as the policy has it, which for
-    a forward-only render sizes nothing (a per-tile render's grad_overflow
-    is counted against the settings' grad capacity, the slot domain plus
-    two chunks per tile unless set)."""
+    (at most 8 tries); a frame that overflows the binning's slot domain
+    (MAX_BINNING_CAP) raises. The returned dict carries `renders`, the
+    number of renders the frame took. Only the slot bucket follows the
+    frame: as in the JAX package the grad bucket stays as the policy has
+    it, which for a forward-only render sizes nothing (a per-tile render's
+    grad_overflow is counted against the settings' grad capacity, the slot
+    domain plus two chunks per tile unless set)."""
     dev = resolve_device(device)
     policy = policy or CapacityPolicy()
     for attempt in range(1, 9):
         out = trainer.render_scene(scene, extrinsic_vector, policy.apply(settings), bg, device=dev)
         if not policy.update(int(out["num_instances"]), int(out["overflow"])):
             break
+    policy.check_whole(int(out["num_instances"]), int(out["overflow"]))
     out["renders"] = attempt
     return out
 

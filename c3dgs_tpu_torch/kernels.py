@@ -10,6 +10,9 @@ tiles_common.cuh (K1-K4) is built for the tile shape of render/types.py
 (-DC3DGS_TILE_X/Y), and its library name carries that shape too
 (libtiles_fwd-16x16-<hash>.so), so the shapes never share a file.
 
+The host codec (csrc/codec.cpp, native.py) is built the same way with
+g++ (compile_libraries).
+
 Each kernel is one `Kernel` record: its source, its C entry point, the TPU
 kernel it replaces, and a plain integer launch count that its `launch`
 bumps once per launched kernel.
@@ -25,7 +28,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 from .render.types import TILE_X, TILE_Y
 
@@ -82,12 +85,12 @@ def shape_flags(source: str) -> Tuple[str, ...]:
     return (f"-DC3DGS_TILE_X={TILE_X}", f"-DC3DGS_TILE_Y={TILE_Y}")
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, flags: Tuple[str, ...] = NVCC_FLAGS) -> Path:
     """build/c3dgs_tpu_torch/lib<stem>[-<X>x<Y>]-<hash>.so: the hash covers
-    the source, its headers and every flag (an edited header changes the
-    name of every source that includes it)."""
+    the source, its headers, the compiler flags and the shape defines (an
+    edited header changes the name of every source that includes it)."""
     shaped = shape_flags(source)
-    digest = hashlib.sha256(b"".join(_sources(source).values()) + " ".join((*NVCC_FLAGS, *shaped)).encode())
+    digest = hashlib.sha256(b"".join(_sources(source).values()) + " ".join((*flags, *shaped)).encode())
     shape = f"-{TILE_X}x{TILE_Y}" if shaped else ""
     return BUILD_DIR / f"lib{Path(source).stem}{shape}-{digest.hexdigest()[:12]}.so"
 
@@ -95,36 +98,47 @@ def library_path(source: str) -> Path:
 @dataclasses.dataclass
 class BuildResult:
     source: str
-    seconds: float  # nvcc wall time (0.0 when the library already existed)
-    log: str  # nvcc's stderr: ptxas registers / shared memory / spills
+    seconds: float  # compiler wall time (0.0 when the library already existed)
+    log: str  # the compiler's output (nvcc: ptxas registers / shared memory / spills)
 
 
-def build(sources: Iterable[str]) -> Dict[str, BuildResult]:
-    """Compile every source that has no library yet, one nvcc per source,
-    all started together. Raises with nvcc's output if any build fails."""
+def compile_libraries(sources: Iterable[str], compiler: Callable[[], str], flags: Tuple[str, ...],
+                      what: str) -> Dict[str, BuildResult]:
+    """Compile every source under csrc/ that has no library yet, one
+    compiler process per source, all started together. Each writes a file
+    of its own that os.replace then moves to the library's name, so
+    concurrent builds never read a half-written one. Raises with the
+    compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     results = {}
     for src in sorted(set(sources)):
-        lib = library_path(src)
+        lib = library_path(src, flags)
         if lib.exists():
             results[src] = BuildResult(src, 0.0, "")
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *shape_flags(src), "-o", str(tmp), str(CSRC / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp, time.perf_counter())
+        cmd = [compiler(), *flags, *shape_flags(src), "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp, lib,
+                      time.perf_counter())
     failed = []
-    for src, (proc, tmp, t0) in procs.items():
+    for src, (proc, tmp, lib, t0) in procs.items():
         out, err = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{src}: nvcc exited {proc.returncode}\n{out}{err}")
+            failed.append(f"{src}: {Path(proc.args[0]).name} exited {proc.returncode}\n{out}{err}")
             continue
-        os.replace(tmp, library_path(src))
+        os.replace(tmp, lib)
         results[src] = BuildResult(src, seconds, out + err)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError(f"{what} build failed:\n" + "\n".join(failed))
     return results
+
+
+def build(sources: Iterable[str]) -> Dict[str, BuildResult]:
+    """Compile every kernel source that has no library yet with nvcc.
+    Raises with nvcc's output if any build fails."""
+    return compile_libraries(sources, nvcc_path, NVCC_FLAGS, "CUDA kernel")
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -29,8 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import native
 from ..device import DeviceLike, resolve_device
-from ..ops import misc, morton, quantize, quat, sh as sh_ops
+from ..ops import misc, quantize, quat, sh as sh_ops
 from ..ops.quantize import ObserverState
 from ..ops.segment import gather_rows
 
@@ -395,9 +396,10 @@ class GaussianScene(nn.Module):
 
     @torch.no_grad()
     def morton_sorted(self) -> "GaussianScene":
-        """Morton reorder of the active rows; inactive rows go last."""
+        """Morton reorder of the active rows (the host codec's order);
+        inactive rows go last."""
         active = self.active.cpu().numpy()
-        order = morton.morton_order(self.xyz.detach().cpu().numpy())
+        order = native.morton_order(self.xyz.detach().cpu().numpy())
         order = np.concatenate([order[active[order]], order[~active[order]]])
         return self.permute(order)
 

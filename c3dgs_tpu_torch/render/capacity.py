@@ -4,12 +4,20 @@ Capacity lives in geometric buckets m * 2^e with a 5-bit mantissa (m in
 16..31, at most 6.7% overshoot): grow when a frame overflows (and render
 it again), shrink one mantissa step after sustained low usage. In the port
 the buckets bound the binning's enumeration and sort sizes.
+
+The slot bucket never grows past the binning's slot domain,
+types.MAX_BINNING_CAP: a frame with more instances renders clamped (the
+deepest-sorted tail dropped and counted in `overflow`) and is not rendered
+again; `clamped` says so after update(). Callers that need the whole
+frame (eval, sensitivity) raise through check_whole(); trainers go on and
+print each clamped step. The JAX policy has no such ceiling: its next
+render past 2^24 slots raises in resolve_caps (ROADMAP C).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from .types import RasterSettings
+from .types import MAX_BINNING_CAP, RasterSettings
 
 MIN_CAPACITY = 1 << 16
 
@@ -22,7 +30,7 @@ class CapacityPolicy:
         shrink_patience: int = 50,
         grad_initial: int = 0,
     ):
-        self.capacity = max(_bucket(initial), MIN_CAPACITY)
+        self.capacity = min(max(_bucket(initial), MIN_CAPACITY), MAX_BINNING_CAP)
         self.headroom = headroom
         self.shrink_patience = shrink_patience
         self._low_count = 0
@@ -32,6 +40,8 @@ class CapacityPolicy:
         # tile); 0 = the settings' default until a frame reports it
         self.grad_capacity = max(_bucket(grad_initial), MIN_CAPACITY) if grad_initial else 0
         self._grad_low = 0
+        # the last frame overflowed at the ceiling: rendered clamped
+        self.clamped = False
 
     def apply(self, settings: RasterSettings) -> RasterSettings:
         return dataclasses.replace(
@@ -51,10 +61,13 @@ class CapacityPolicy:
         should be rendered again at the new (grown) capacity."""
         rerender = False
         need = int(num_instances * self.headroom)
+        self.clamped = False
         if overflow > 0 or need > self.capacity:
-            self.capacity = max(_bucket(max(need, self.capacity + 1)), MIN_CAPACITY)
+            grown = min(max(_bucket(max(need, self.capacity + 1)), MIN_CAPACITY), MAX_BINNING_CAP)
+            self.clamped = overflow > 0 and grown == self.capacity
+            rerender = overflow > 0 and not self.clamped
+            self.capacity = grown
             self._low_count = 0
-            rerender = overflow > 0
         elif need < self.capacity * 3 // 4 and self.capacity > MIN_CAPACITY:
             self._low_count += 1
             if self._low_count >= self.shrink_patience:
@@ -81,6 +94,24 @@ class CapacityPolicy:
             else:
                 self._grad_low = 0
         return rerender
+
+    def check_whole(self, num_instances: int, overflow: int) -> None:
+        """Raise if the frame just fed to update() was clamped at the
+        ceiling: its image and gradients miss its deepest instances."""
+        if self.clamped:
+            raise RuntimeError(
+                f"a frame of {num_instances} instances overflows the binning's slot domain "
+                f"(MAX_BINNING_CAP = {MAX_BINNING_CAP} slots): {overflow} instances would be dropped"
+            )
+
+    def note_clamped(self, where: str, num_instances: int, overflow: int) -> bool:
+        """For trainers, which go on past a clamped frame: print one line
+        if the frame just fed to update() was clamped at the ceiling.
+        Returns `clamped`."""
+        if self.clamped:
+            print(f"[capacity] {where}: trained clamped at the slot domain ({self.capacity} slots), "
+                  f"{overflow} of {num_instances} instances dropped", flush=True)
+        return self.clamped
 
 
 def _bucket(x: int) -> int:

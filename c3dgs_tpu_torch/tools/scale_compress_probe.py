@@ -121,11 +121,13 @@ def probe_settings(width: int, height: int) -> tuple:
 @torch.no_grad()
 def render_capped(scene, ev, settings, policy: CapacityPolicy, bg, device: DeviceLike = None) -> dict:
     """One view through the capacity policy: render, and again at the grown
-    bucket while the frame overflows (at most 6 renders)."""
+    bucket while the frame overflows (at most 6 renders); a frame past the
+    binning's slot domain raises."""
     for _ in range(6):
         out = trainer.render_scene(scene, ev, policy.apply(settings), bg, device=device)
         if not policy.update(int(out["num_instances"]), int(out["overflow"])):
-            return out
+            break
+    policy.check_whole(int(out["num_instances"]), int(out["overflow"]))
     return out
 
 

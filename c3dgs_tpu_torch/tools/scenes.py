@@ -1,13 +1,48 @@
-"""Seeded numpy inputs shared by tests/test_torch_gpu.py and chip_smoke.py:
-a scene that holds the packed kernels against their plain versions on the
-card, and random LPIPS weights that hold the card's LPIPS against the
-CPU's.
+"""Seeded inputs shared by the tools, tests/test_torch_gpu.py and
+chip_smoke.py: bench.py's point cloud (the saturation and clamp probes'
+scenes), a scene that holds the packed kernels against their plain
+versions on the card, and random LPIPS weights that hold the card's LPIPS
+against the CPU's.
 """
 from __future__ import annotations
 
-import numpy as np
+import math
 
+import numpy as np
+import torch
+
+from ..device import DeviceLike
 from ..eval.lpips import ALEX_CONVS, VGG_BLOCKS
+from ..models import gaussians as gmod
+
+
+def bench_arrays(n: int, seed: int, trained: bool = True):
+    """bench.py:34-77's numpy draws, in its order: n points N(0, 2^2) about
+    z = 6, uniform colors, and (trained) opacity logits of Beta(0.5, 0.35)
+    draws clipped to [0.005, 0.995], else None. Returns (points, colors,
+    logits)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, 3)).astype(np.float32) * 2.0
+    pts[:, 2] += 6.0
+    cols = rng.random(size=(n, 3)).astype(np.float32)
+    if not trained:
+        return pts, cols, None
+    op = np.clip(rng.beta(0.5, 0.35, size=(n, 1)), 0.005, 0.995)
+    return pts, cols, np.log(op / (1.0 - op)).astype(np.float32)
+
+
+def bench_recipe_scene(n: int, seed: int, scale: float, trained: bool = True,
+                       device: DeviceLike = None) -> gmod.GaussianScene:
+    """bench_arrays through from_point_cloud (no quantization), the kNN
+    scales multiplied by `scale`; the opacities bench_arrays drew, if any
+    (else from_point_cloud's)."""
+    pts, cols, logits = bench_arrays(n, seed, trained)
+    scene = gmod.from_point_cloud(pts, cols, capacity=n, quantization=False, device=device)
+    with torch.no_grad():
+        scene.scaling_factor += math.log(scale)
+        if logits is not None:
+            scene.opacity.copy_(torch.as_tensor(logits))
+    return scene
 
 
 def long_tile_scene(n: int = 4000, seed: int = 11):

@@ -71,6 +71,7 @@ def finetune(
         m = {k: float(v) if k in ("loss", "psnr") else int(v) for k, v in metrics.items()}
         m["ms"] = (time.perf_counter() - t_step) * 1e3
         capacity.update(m["num_instances"], m["overflow"], m["grad_total"], m["grad_overflow"])
+        capacity.note_clamped(f"finetune step {it}", m["num_instances"], m["overflow"])
         if history is not None:
             history.append(m)
         ema_loss = m["loss"] if ema_loss is None else 0.6 * ema_loss + 0.4 * m["loss"]

@@ -90,8 +90,8 @@ Phases (any failed check raises, and the script exits non-zero):
      renders, sensitivity, finetune); the log, the saved .ply against the
      final state, results.json, times.json, the PNG dump and its scores
      checked, and the npz from disk served again; dataset write s, Scene
-     load s, s per epoch, ms per step (its image decode and its metric
-     reads), eval ms per view, the compress CLI's times, bytes, ratio and
+     load s (its points3D.bin parse through the host codec), s per
+     epoch, ms per step (its image decode and its metric reads), eval ms per view, the compress CLI's times, bytes, ratio and
      PSNR, and render ms per view printed;
  19. poses, joint training and the small CLIs, each part's K1 and K2
      launches, reset just before and read just after, equal to the calls
@@ -157,9 +157,27 @@ Phases (any failed check raises, and the script exits non-zero):
      image bar, on the probe's finetuned npz and on its 1.2M-splat scene
      made codebook-indexed (blocked there by default); ratios, PSNRs, active counts, stage seconds, peak
      memory, eigh's batches and seconds and the launches printed;
- 23. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
-     `<name>@16x16`; K1/K2's launches include phase 22's children), the
-     card line, and the final status line.
+ 23. the host codec and the last tools: the codec (csrc/codec.cpp, built
+     with g++) loaded, its points3D.bin parse of phase 18's folder and its
+     Morton order of the bench scene equal to the numpy versions, and
+     phases 17 (the npz's Morton order) and 18 (the Scene load) counted
+     calling it; then, each in a child process of this script as phase 22
+     runs its tools: saturation_probe at bench.py's frame (300,000
+     splats, 1920x1080: skipped <= interior <= segment chunks, frozen
+     tiles <= tiles, the report from the plain K1's blocks equal to the
+     tool's), clamp_probe (1,500,000 splats at 1920x1080: four rows, PSNR
+     finite and falling, dropped = true instances - capacity + tiles
+     exactly), scale_train_probe --steps 500 (600k-splat GT, 1M-point
+     init at 1920x1080: one capacity growth to 2,499,840 rows at step
+     300, the EMA PSNR finite and above step 0's, the clamp rows obeying
+     the same identity) and dcn_probe (two torchrun nodes of 4 gloo ranks
+     on cuda:0: each tiles group on one node, the JAX tool's 5e-5 / 1e-5
+     / 0 bars); every tool's K1 / K2 launches, every dcn rank's, equal
+     to the calls that make them; their figures printed beside the card's
+     name and power limit;
+ 24. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
+     `<name>@16x16`; K1/K2's launches include phase 22's and phase 23's
+     children and ranks), the card line, and the final status line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -187,7 +205,7 @@ import torch
 
 import torch.nn.functional as F
 
-from c3dgs_tpu_torch import kernels
+from c3dgs_tpu_torch import kernels, native
 from c3dgs_tpu_torch.cli import compress as cli_compress
 from c3dgs_tpu_torch.cli import metrics as cli_metrics
 from c3dgs_tpu_torch.cli import npz2ply as cli_npz2ply
@@ -201,12 +219,12 @@ from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.data import cameras, colmap
 from c3dgs_tpu_torch.eval import lpips, metrics
 from c3dgs_tpu_torch.models import gaussians, io_npz, io_ply
-from c3dgs_tpu_torch.ops import losses, quat
+from c3dgs_tpu_torch.ops import losses, morton, quat
 from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
-from c3dgs_tpu_torch.render.types import TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
+from c3dgs_tpu_torch.render.types import MAX_BINNING_CAP, TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
@@ -370,19 +388,12 @@ def bench_scene(device, n):
     to a trained footprint, trained-opacity Beta(0.5, 0.35) statistics.
     SH degree 3 is active with small random higher bands from a second
     seed (bench.py leaves them zero), so the degree-3 evaluation runs."""
-    rng = np.random.default_rng(0)
-    pts = rng.normal(size=(n, 3)).astype(np.float32) * 2.0
-    pts[:, 2] += 6.0
-    cols = rng.random(size=(n, 3)).astype(np.float32)
     t0 = time.perf_counter()
-    scene = gaussians.from_point_cloud(pts, cols, capacity=n, quantization=False, device=device)
+    scene = scenes.bench_recipe_scene(n, 0, 0.15, device=device)
     torch.cuda.synchronize()
     knn_s = time.perf_counter() - t0
-    op = np.clip(rng.beta(0.5, 0.35, size=(n, 1)), 0.005, 0.995)
     rest = np.random.default_rng(1).normal(size=tuple(scene.features_rest.shape)) * 0.05
     with torch.no_grad():
-        scene.scaling_factor += math.log(0.15)
-        scene.opacity.copy_(torch.as_tensor(np.log(op / (1.0 - op)), dtype=torch.float32))
         scene.features_rest.copy_(torch.as_tensor(rest, dtype=torch.float32))
     scene.active_sh_degree = 3
     return scene, knn_s
@@ -1672,8 +1683,10 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     NPZ_DIR.mkdir(parents=True, exist_ok=True)
     path = NPZ_DIR / "compressed.npz"
     t0 = time.perf_counter()
+    morton_calls = native.calls["morton_order_f32"]
     saved = io_npz.save_npz(tuned, path, sort_morton=True, xyz_u16=True)
     encode_s = time.perf_counter() - t0
+    CODEC_CALLS["phase 17 npz (morton_order_f32)"] = native.calls["morton_order_f32"] - morton_calls
     t0 = time.perf_counter()
     loaded = io_npz.load_npz(path, device=DEVICE)
     torch.cuda.synchronize()
@@ -1791,24 +1804,26 @@ def phase_cli(scene, n_views=24, epochs=8, finetune_steps=12, width=1920, height
     # -- train
     rec = Recorder()
     rec.wrap(cli_train, "Scene", sync=True)
-    rec.wrap(colmap, "read_points3D_binary")
+    rec.wrap(native, "read_points3d_binary")
     rec.wrap(cli_train.trainer, "train_step", keep=True)
     rec.wrap(cameras.Camera, "load_image")
     rec.wrap(cli_train.metrics, "render_full", sync=True)
     kernels.reset_counts()
+    parse_calls = native.calls["colmap_points3d_parse"]
     try:
         random.seed(0)
         state = cli_train.main(["-s", ds, "-m", out, "-r", "1", "--eval", "--epochs", str(epochs),
                                 "--eval_every", "4", "--opacity_reset_interval", "30000", "--data_device", DEVICE])
     finally:
         rec.restore()
+    CODEC_CALLS["phase 18 Scene load (colmap_points3d_parse)"] = native.calls["colmap_points3d_parse"] - parse_calls
     got = launches()
     entries = [json.loads(line) for line in open(Path(out) / "train_log.jsonl")]
     steps = rec.calls("train_step")
     (s0, s1), = rec.spans["Scene"]
-    (p0, p1), = rec.spans["read_points3D_binary"]
-    log(f"  Scene load (COLMAP read, kNN init at 4x capacity) {s1 - s0:.3f} s; of it the numpy points3D.bin parse "
-        f"of {scene.capacity} points {p1 - p0:.3f} s")
+    (p0, p1), = rec.spans["read_points3d_binary"]
+    log(f"  Scene load (COLMAP read, kNN init at 4x capacity) {s1 - s0:.3f} s; of it the host codec's points3D.bin "
+        f"parse of {scene.capacity} points {p1 - p0:.3f} s")
     for e in entries:
         log(f"  {json.dumps(e)}")
     n_test = 3
@@ -2756,6 +2771,17 @@ def tool_child(name: str, cfg: dict) -> int:
     finetune.finetune, quat._eigh = recorded_finetune, timed_eigh
     module = f"c3dgs_tpu_torch.tools.{name}"
     tool = importlib.import_module(module)
+    k1_inputs, rec = [], Recorder()
+    if name == "saturation_probe":
+        real_forward = tiles_packed.forward
+
+        def captured_forward(*args):
+            k1_inputs[:] = args
+            return real_forward(*args)
+
+        tiles_packed.forward = captured_forward
+    if name == "scale_train_probe":
+        rec.wrap(tool, "render_full")
     if cfg.get("iterations"):
         cli_train.main = lambda argv: real_train([*argv, "--iterations", str(cfg["iterations"])])
     if cfg.get("finetune_iterations"):
@@ -2769,11 +2795,25 @@ def tool_child(name: str, cfg: dict) -> int:
         tool.compress_argv = cut_argv
     sys.argv = [module, *cfg["argv"]]
     t0 = time.perf_counter()
-    tool.main()
+    result = tool.main()
     torch.cuda.synchronize()
+    seconds, counts = time.perf_counter() - t0, launches()
+    extra = {}
+    if name in PROBE_TOOLS:
+        extra = {"result": result, "gt_renders": rec.renders}
+    if name == "saturation_probe":
+        # outside the counted run: the tool's K1 call against the plain K1
+        from c3dgs_tpu_torch.tools.saturation_probe import saturation_report
+
+        err, mismatched, _, out_p = compare_k1("saturation probe K1", k1_inputs)
+        w = result["workload"]
+        extra.update(k1_max_abs_err=err, freeze_mismatches=mismatched, plain_report=saturation_report(
+            out_p.cpu().numpy(), k1_inputs[3].cpu().numpy(), k1_inputs[4].cpu().numpy(), w["chunks_exec"],
+            w["instances"], w["tiles"], w["n_gaussians"]))
     Path(cfg["out"]).write_text(json.dumps({
-        "seconds": time.perf_counter() - t0,
-        "launches": launches(),
+        **extra,
+        "seconds": seconds,
+        "launches": counts,
         "finetune_steps": len(steps),
         "max_overflow": max((s["overflow"] for s in steps), default=0),
         "max_grad_overflow": max((s["grad_overflow"] for s in steps), default=0),
@@ -2884,6 +2924,23 @@ def blocked_colors_check(npz: Path, n: int) -> None:
                     1e-4)
 
 
+def run_tool(phase: str, name: str, out: Path, cfg: dict, env=None, timeout=900):
+    """`python3 chip_smoke.py --tool-phase <name> <cfg>` with its output in
+    out/stdout.log: (the child's record, its log, wall seconds). Raises
+    with the log's end if the child fails."""
+    log_path = out / "stdout.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tool-phase", name, json.dumps(cfg)],
+                              env=dict(os.environ, **(env or {})), stdout=f, stderr=subprocess.STDOUT,
+                              timeout=timeout)
+    text = log_path.read_text()
+    if proc.returncode != 0:
+        log(text[-4000:])
+        raise RuntimeError(f"{phase}: {name} exited {proc.returncode}")
+    return json.loads(Path(cfg["out"]).read_text()), text, time.perf_counter() - t0
+
+
 def phase_tools() -> dict:
     """Phase 22: the four compression evidence tools on the card, each in a
     child process with its output in a temporary directory; returns their
@@ -2904,20 +2961,10 @@ def phase_tools() -> dict:
                     cli_train.epoch_schedule(OptimizationParams(epochs=full)), (name, schedule)
             if name == "convergence_run":
                 cfg["finetune_iterations"] = ft_steps
-            log_path = out / "stdout.log"
-            t0 = time.perf_counter()
-            with open(log_path, "w") as f:
-                proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tool-phase", name,
-                                       json.dumps(cfg)], env=dict(os.environ, **env), stdout=f,
-                                      stderr=subprocess.STDOUT, timeout=900)
-            text = log_path.read_text()
-            if proc.returncode != 0:
-                log(text[-4000:])
-                raise RuntimeError(f"phase 22: {name} exited {proc.returncode}")
+            rec, text, seconds = run_tool("phase 22", name, out, cfg, env)
             cuts = " ".join(f"{k}={v}" for k, v in (*env.items(), *((k, cfg[k]) for k in
                                                                   ("iterations", "finetune_iterations") if k in cfg)))
-            log(f"  {name} {' '.join(argv)} {cuts}: exit 0 in {time.perf_counter() - t0:.1f} s")
-            rec = json.loads(Path(cfg["out"]).read_text())
+            log(f"  {name} {' '.join(argv)} {cuts}: exit 0 in {seconds:.1f} s")
             check_tool(name, out, rec, ft_steps, text)
             for k, v in rec["launches"].items():
                 total[k] = total.get(k, 0) + v
@@ -2925,6 +2972,160 @@ def phase_tools() -> dict:
                 blocked_colors_check(out / "scale_compress.npz", int(argv_n(argv, "--n", 1_200_000)))
     log(f"  phase 22 launches: K1 {total['tiles_packed_fwd']}, K2 {total['tiles_packed_bwd']}; card "
         f"{smi('name,power.limit')}")
+    return total
+
+
+# ------------------------------------------------------------ phase 23
+# (tool, its arguments): the last tools at their own widths; only
+# scale_train_probe's depth is cut (2000 -> 500 steps: the first densify at
+# step 300 with its capacity growth, the SH degree at 125 / 250 / 375; the
+# opacity reset at 900 falls outside)
+PROBE_TOOLS = ("saturation_probe", "clamp_probe", "scale_train_probe", "dcn_probe")
+PROBE_CUT = {"scale_train_probe": ["--steps", "500"]}
+GROWN_CAPACITY = 2 * (int(1_000_000 * 1.25) // 128 * 128)  # the 1M init's rows after its one growth
+CODEC_CALLS = {}  # host-codec calls on the main paths, written by phases 17 and 18
+
+
+def clamp_identity(rows, true_inst: int, tiles: int, dropped_key: str) -> None:
+    """Each clamped render drops the instances and one sentinel per tile
+    past its capacity: true instances - capacity + tiles, exactly."""
+    for r in rows:
+        cap = int(true_inst * r["capacity_fraction"]) // 128 * 128
+        assert r[dropped_key] == true_inst - cap + tiles, (r, true_inst, cap, tiles)
+
+
+def check_probe(name: str, out: Path, rec: dict) -> dict:
+    """Phase 23's checks of one tool's run; raises on the first failure,
+    logs the figures and returns the K1 / K2 launches of its main path."""
+    k1, k2 = rec["launches"]["tiles_packed_fwd"], rec["launches"]["tiles_packed_bwd"]
+
+    def tiles_of(res: str) -> int:
+        w, h = (int(v) for v in res.split("x"))
+        return RasterSettings(width=w, height=h, tanfovx=1.0, tanfovy=1.0).num_tiles
+
+    if name == "saturation_probe":
+        r = rec["result"]
+        w, p, f, sat = r["workload"], r["per_tile_chunks"], r["freeze"], r["saturation"]
+        log(f"  saturation_probe: {w['n_gaussians']} splats, {w['instances']} instances in {w['tiles']} tiles, "
+            f"chunks_exec {w['chunks_exec']}; segment chunks {p['total_segment_chunks']}, interior (flush-free) "
+            f"{p['interior_flush_free_chunks']}; tiles frozen {f['tiles_frozen']}, chunks skipped by the freeze "
+            f"{f['chunks_skipped_by_freeze']} (skip share of chunks_exec {f['skip_fraction_of_exec']}); tiles "
+            f"saturated at the end {sat['tiles_fully_saturated_final']}, pixels saturated "
+            f"{sat['pixels_saturated_fraction']}")
+        log(f"  saturation_probe K1 vs plain: max abs err {rec['k1_max_abs_err']:.3e}, "
+            f"{rec['freeze_mismatches']} freeze-slot ties")
+        assert f["chunks_skipped_by_freeze"] <= p["interior_flush_free_chunks"] <= p["total_segment_chunks"], r
+        assert f["tiles_frozen"] <= w["tiles"], r
+        assert rec["plain_report"] == {k: v for k, v in r.items() if k != "card"}, \
+            "the report from the plain K1's blocks differs"
+        expect = (2, 0)  # the probe render and the packed forward
+    elif name == "clamp_probe":
+        r = json.loads((out / "CLAMP_PROBE.json").read_text())
+        rows = r["curve"]
+        log(f"  clamp_probe: {r['n_gaussians']} splats, {r['true_instances']} true instances at {r['resolution']}; "
+            + ", ".join(f"{c['capacity_fraction']:.0%}: {c['instances_dropped']} dropped, "
+                        f"{c['psnr_vs_exact_dB']:.4f} dB" for c in rows))
+        psnrs = [c["psnr_vs_exact_dB"] for c in rows]
+        assert len(rows) == 4 and finite(*psnrs) and all(a > b for a, b in zip(psnrs, psnrs[1:])), rows
+        clamp_identity(rows, r["true_instances"], tiles_of(r["resolution"]), "instances_dropped")
+        expect = (6, 0)  # the probe render, the exact one, four clamped
+    elif name == "scale_train_probe":
+        r = json.loads((out / "SCALE_TRAIN.json").read_text())
+        steps = r["steps"]
+        log_rows = [json.loads(x) for x in open(out / "scale_train_log.jsonl")]
+        log(f"  scale_train_probe ({steps} steps): final {r['final_active']} active in {r['final_capacity']} rows, "
+            f"{r['capacity_growths']} growth(s), EMA PSNR {log_rows[0]['ema_psnr']:.4f} -> {r['final_ema_psnr']:.4f} "
+            f"dB, {r['seconds_total']:.1f} s ({r['seconds_total'] / steps * 1e3:.1f} ms a step with densify and "
+            f"logging), peak {rec['peak_gb']:.2f} GiB; {rec['gt_renders']} GT renders; {r['clamped_steps']} of "
+            f"{steps} steps trained clamped (the slot domain holds {MAX_BINNING_CAP}), largest overflow "
+            f"{r['max_overflow']} instances")
+        log("  scale_train_probe log: " + "; ".join(
+            f"{x['step']}: {x['ema_psnr']:.3f} dB, {x['active']} active, {x['capacity']} rows, {x['instances']} inst"
+            for x in log_rows))
+        log(f"  scale_train_probe clamp on view 0 ({r['true_instances_view0']} true instances): " + ", ".join(
+            f"{c['capacity_fraction']:.0%}: {c['dropped']} dropped, {c['psnr_vs_exact']:.4f} dB"
+            for c in r["clamp_experiment"]))
+        assert finite(r["final_ema_psnr"]) and r["final_ema_psnr"] > log_rows[0]["ema_psnr"], r
+        # the training leaves the clamped regime: its last frame fits the slot domain
+        assert r["clamped_steps"] < steps and log_rows[-1]["instances"] < MAX_BINNING_CAP - tiles_of(r["resolution"]), r
+        clamp_identity(r["clamp_experiment"], r["true_instances_view0"], tiles_of(r["resolution"]), "dropped")
+        if steps == 500:
+            assert r["capacity_growths"] == 1 and r["final_capacity"] == GROWN_CAPACITY, r
+        expect = (steps + rec["gt_renders"] + 6, steps)  # a K1 and a K2 a step; GT renders; the clamp's six
+    else:
+        r = json.loads((out / "MULTIPROC.json").read_text())
+        log(f"  dcn_probe: {r['devices_global']} ranks on {r['processes']} nodes, mesh {r['mesh']}, {r['collectives']}; "
+            f"loss {r['loss']:.9f} vs single-device {r['ref_loss']:.9f}; max parameter difference "
+            f"{r['max_param_update_diff_vs_single_device']:.3e} ({json.dumps(r['per_param_diffs'])}); route_dropped "
+            f"{r['shard_route_dropped']}")
+        for x in r["ranks"]:
+            log(f"    rank {x['rank']} node {x['node']} (dp {x['dp_index']}, tile {x['tile_index']}): tiles group on "
+                f"nodes {x['tiles_group_nodes']}, dp group on {x['dp_group_nodes']}; K1/K2 {x['launches']} for "
+                f"calls {x['calls']}" + (f"; {x['diagnosis']}" if "diagnosis" in x else ""))
+        assert not r["failures"], r["failures"]
+        assert r["max_param_update_diff_vs_single_device"] < 5e-5 and abs(r["loss"] - r["ref_loss"]) < 1e-5
+        assert r["shard_route_dropped"] == 0 and len(r["ranks"]) == 8
+        for x in r["ranks"]:
+            assert len(set(x["tiles_group_nodes"])) == 1 and sorted(x["dp_group_nodes"]) == [0, 1], x
+            assert x["launches"] == x["calls"], x
+        k1 += sum(x["launches"][0] for x in r["ranks"])
+        k2 += sum(x["launches"][1] for x in r["ranks"])
+        expect = tuple(sum(x["calls"][i] for x in r["ranks"]) for i in range(2))
+    assert (k1, k2) == expect, f"{name}: K1/K2 launches {(k1, k2)}, its calls {expect}"
+    log(f"  {name}: K1 {k1}, K2 {k2} launches, equal to its calls; card {smi('name,power.limit')}")
+    return {"tiles_packed_fwd": k1, "tiles_packed_bwd": k2}
+
+
+def codec_check(xyz: np.ndarray) -> None:
+    """The host codec on the card's machine: built and loaded, its arrays
+    equal to the numpy versions on phase 18's points3D.bin and on the bench
+    scene's Morton order, and called on phase 17's and phase 18's paths."""
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    path = CLI_DIR / "dataset" / "sparse" / "0" / "points3D.bin"
+    t0 = time.perf_counter()
+    got = native.read_points3d_binary(path)
+    t1 = time.perf_counter()
+    want = colmap.read_points3D_binary(path)
+    t2 = time.perf_counter()
+    for a, b in zip(got, want, strict=True):
+        assert np.array_equal(a, b), "the codec's points3D.bin parse differs from the numpy parser"
+    t3 = time.perf_counter()
+    order = native.morton_order(xyz)
+    t4 = time.perf_counter()
+    assert np.array_equal(order, morton.morton_order(xyz)), "the codec's Morton order differs from numpy's"
+    t5 = time.perf_counter()
+    log(f"  host codec: built and loaded in {build_s:.3f} s ({native.library_path().name}); points3D.bin of "
+        f"{len(got[0])} points {t1 - t0:.4f} s (numpy {t2 - t1:.4f} s), equal; Morton order of {len(xyz)} points "
+        f"{t4 - t3:.4f} s (numpy {t5 - t4:.4f} s), equal; calls on the main paths {json.dumps(CODEC_CALLS)}")
+    assert len(CODEC_CALLS) == 2 and all(n >= 1 for n in CODEC_CALLS.values()), CODEC_CALLS
+
+
+def phase_probe_tools(xyz) -> dict:
+    """Phase 23: the host codec (given the bench scene's xyz) and the last
+    tools, each in a child process with its output in a temporary
+    directory (scale_train_probe cut to 500 steps); returns their summed
+    kernel launches, every rank's for dcn_probe."""
+    log("== phase 23: the host codec and the last tools (saturation_probe, clamp_probe, scale_train_probe, "
+        "dcn_probe), one child process each")
+    t_phase = time.perf_counter()
+    codec_check(xyz)
+    torch.cuda.empty_cache()  # the children share the card with this process
+    total = {"tiles_packed_fwd": 0, "tiles_packed_bwd": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_probes_") as tmp:
+        for name in PROBE_TOOLS:
+            out = Path(tmp) / name
+            out.mkdir()
+            argv = PROBE_CUT.get(name, [])
+            where = [] if name == "saturation_probe" else ["--out_dir", str(out)]
+            cfg = dict(argv=[*argv, *where, "--device", DEVICE], out=str(out / "record.json"))
+            rec, _, seconds = run_tool("phase 23", name, out, cfg)
+            log(f"  {name} {' '.join(argv)}: exit 0 in {seconds:.1f} s")
+            for k, v in check_probe(name, out, rec).items():
+                total[k] += v
+    log(f"  phase 23: {time.perf_counter() - t_phase:.1f} s; launches K1 {total['tiles_packed_fwd']}, K2 "
+        f"{total['tiles_packed_bwd']}; card {smi('name,power.limit')}")
     return total
 
 
@@ -2979,10 +3180,14 @@ def main() -> int:
     k1["launches"] += multi[k1["name"]]  # every rank's sharded and reference renders and steps
     k2["launches"] += multi[k2["name"]]
     other_shape, small_rows = phase_tiles(scene, cams)
+    xyz = scene.xyz.detach().cpu().numpy()
     del scene, cams, compressed, ctx, ctx_pt
     tools = phase_tools()
     k1["launches"] += tools[k1["name"]]  # the tools' GT renders, train steps, evals, sensitivity, finetune
     k2["launches"] += tools[k2["name"]]  # their train steps, sensitivity and finetune
+    last = phase_probe_tools(xyz)
+    k1["launches"] += last[k1["name"]]  # the probes' renders, train steps, every dcn rank's step and reference
+    k2["launches"] += last[k2["name"]]  # the train steps, every dcn rank's step and reference
     log("small-scene kernel figures at 16x8 and 32x32 (no main path): " + json.dumps(small_rows))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes, *other_shape]}), flush=True)
