@@ -16,11 +16,13 @@ from ..eval.lpips import ALEX_CONVS, VGG_BLOCKS
 from ..models import gaussians as gmod
 
 
-def bench_arrays(n: int, seed: int, trained: bool = True):
+def bench_arrays(n: int, seed, trained: bool = True):
     """bench.py:34-77's numpy draws, in its order: n points N(0, 2^2) about
     z = 6, uniform colors, and (trained) opacity logits of Beta(0.5, 0.35)
-    draws clipped to [0.005, 0.995], else None. Returns (points, colors,
-    logits)."""
+    draws clipped to [0.005, 0.995], else None. `seed` is an int or a
+    numpy Generator, which then goes on from where these draws leave it
+    (bench_render.py draws its codebook indices next). Returns (points,
+    colors, logits)."""
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(n, 3)).astype(np.float32) * 2.0
     pts[:, 2] += 6.0
@@ -31,10 +33,10 @@ def bench_arrays(n: int, seed: int, trained: bool = True):
     return pts, cols, np.log(op / (1.0 - op)).astype(np.float32)
 
 
-def bench_recipe_scene(n: int, seed: int, scale: float, trained: bool = True,
+def bench_recipe_scene(n: int, seed, scale: float, trained: bool = True,
                        device: DeviceLike = None) -> gmod.GaussianScene:
-    """bench_arrays through from_point_cloud (no quantization), the kNN
-    scales multiplied by `scale`; the opacities bench_arrays drew, if any
+    """bench_arrays (`seed` an int or a Generator) through from_point_cloud
+    (no quantization), the kNN scales multiplied by `scale`; the opacities bench_arrays drew, if any
     (else from_point_cloud's)."""
     pts, cols, logits = bench_arrays(n, seed, trained)
     scene = gmod.from_point_cloud(pts, cols, capacity=n, quantization=False, device=device)

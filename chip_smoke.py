@@ -175,9 +175,22 @@ Phases (any failed check raises, and the script exits non-zero):
      / 0 bars); every tool's K1 / K2 launches, every dcn rank's, equal
      to the calls that make them; their figures printed beside the card's
      name and power limit;
- 24. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
-     `<name>@16x16`; K1/K2's launches include phase 22's and phase 23's
-     children and ranks), the card line, and the final status line.
+ 24. the bench entry points, each in a child process as phase 22 runs
+     its tools: c3dgs_tpu_torch.tools.bench (bench.py's workload at full
+     width: 300,000 splats at SH degree 0, 1920x1080, probe-exact buckets;
+     C3DGS_BENCH_ITERS=10, BLOCKS=2), bench_render (dense and indexed,
+     ITERS=10), profile_bench --packed 1 (K1 + K2) and --packed 0 (K3 +
+     K4; 1 profiled step each), dispatch_probe and cumsum_probe (5 calls a
+     formulation); each JSON line parsed with its keys, the bench's gate
+     and bitwise-repeatable gradients, every formulation's error under
+     1e-2 but the one-pass bf16 matmul's (printed) and torch.cumsum over
+     dim 0's (a sequential fp32 scan, held bit for bit to numpy's), each
+     tool's K1-K4 launches equal to the calls that make them;
+ 25. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
+     `<name>@16x16`; K1/K2's launches include phase 22's, 23's and 24's
+     children and ranks, K3/K4's phase 24's), the card line, and the final
+     status line.
+Each phase from 1 to 24 ends with a `== phase N: done (x.x s)` line.
 It imports nothing of JAX and nothing of the c3dgs_tpu package.
 """
 from __future__ import annotations
@@ -226,13 +239,10 @@ from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import MAX_BINNING_CAP, TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
+from c3dgs_tpu_torch.tools.roofline import (FP32_FLOPS, HBM_BYTES_PER_S, SFU_PER_SM_CLOCK, SMS, bwd_work,
+                                            device_busy_ms, fwd_work, roofline)
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
-# H100 SXM peaks (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-SMS = 132
-SFU_PER_SM_CLOCK = 16  # special-function (MUFU) results per SM per clock
 LOG_EXIT_T = math.log(1e-6)
 DEVICE = "cuda"
 BENCH_N = 300_000  # bench.py's gaussian count
@@ -293,47 +303,12 @@ def host_ms(fn, reps: int = 3):
     return times
 
 
-def roofline(bytes_moved: int, sfu_ops: int, flops: int, clock_mhz: float):
-    """The least time (ms) the card could take for this work: the largest of
-    the bytes over the memory rate, the special-function operations over
-    the SFUs' rate at the card's clock, and the fp32 flops over the fp32
-    peak. Logs the three; returns (bound, what bounds it)."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_sfu = sfu_ops / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6) * 1e3
-    t_flops = flops / FP32_FLOPS * 1e3
-    log(f"  bound: bytes {t_bytes:.4f} ms ({bytes_moved} B), special functions {t_sfu:.4f} ms "
-        f"({sfu_ops} ops at {clock_mhz} MHz), fp32 {t_flops:.4f} ms ({flops} flops)")
-    return max(t_bytes, t_sfu, t_flops), "bytes" if t_bytes >= max(t_sfu, t_flops) else "operations"
-
-
 def old_bound(bytes_moved: int, stats: dict, sfu_per_alpha: int, flops: int, clock_mhz: float) -> float:
     """K3's or K4's bound with an exp counted for every walked pair, as it
     was computed before those kernels skipped exps: logged beside the new
     one."""
     t_sfu = (stats["pairs"] + sfu_per_alpha * stats["alpha_pairs"]) / (SMS * SFU_PER_SM_CLOCK * clock_mhz * 1e6)
     return max(bytes_moved / HBM_BYTES_PER_S, t_sfu, flops / FP32_FLOPS) * 1e3
-
-
-def fwd_work(walked: int, n_tiles: int, int_arrays: int, stats: dict):
-    """The least work of a forward kernel (K1, K3) on a frame, as (bytes,
-    special-function operations, fp32 flops): each walked slot's 9 staged
-    f32 rows read once, `int_arrays` (T,) int arrays read, the (T, 8, PIX)
-    blocks written; every walked (pixel, slot) pair's power in fp32, an
-    exp for those the kernel's skip keeps, and a log1p and an exp more for
-    those with alpha > 0. `stats` are the plain version's counts."""
-    return (9 * 4 * walked + int_arrays * 4 * n_tiles + n_tiles * 8 * tiles.PIX * 4,
-            stats["exp_pairs"] + 2 * stats["alpha_pairs"], 12 * stats["pairs"] + 11 * stats["alpha_pairs"])
-
-
-def bwd_work(walked: int, n_tiles: int, grad_cols: int, int_arrays: int, stats: dict):
-    """The least work of a backward kernel (K2, K4), as fwd_work's: each
-    walked slot's 10 staged rows read once, 7 block rows per pixel read,
-    16 gradient rows of `grad_cols` columns written, `int_arrays` (T,) int
-    arrays read; every walked pair's power in fp32, an exp for those the
-    skip keeps, and a log1p, an exp and a reciprocal per pair with
-    alpha > 0."""
-    return (10 * 4 * walked + 7 * 4 * n_tiles * tiles.PIX + 16 * 4 * grad_cols + int_arrays * 4 * n_tiles,
-            stats["exp_pairs"] + 3 * stats["alpha_pairs"], 12 * stats["pairs"] + 40 * stats["alpha_pairs"])
 
 
 # ------------------------------------------------------------------ scenes
@@ -710,24 +685,18 @@ def phase_breakdown(scene, settings):
         log(f"  {name:16s} {ms:9.4f} ms  ({100 * ms / view_ms:5.1f}% of the render)")
     log(f"  sum of stages    {sum(med.values()):9.4f} ms; whole render_scene {view_ms:.4f} ms (median of 5)")
 
-    from torch.profiler import ProfilerActivity, profile
+    def render():
+        with torch.no_grad():
+            trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.render_scene(scene, ev, settings, bg, device=DEVICE)
-        torch.cuda.synchronize()
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
-    rows = sorted(
-        (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0),
-        key=dev_time, reverse=True,
-    )
-    busy_ms = sum(dev_time(e) for e in rows) / 1e3
+    busy_ms, rows = device_busy_ms(render)
     if not rows:
         log("  profiler: no device time recorded")
         return
     log(f"  profiler: {busy_ms:.4f} ms of kernel time in one render; busy share "
         f"{100 * busy_ms / view_ms:.1f}% of the unprofiled {view_ms:.4f} ms")
-    for e in rows[:12]:
-        log(f"    {dev_time(e) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+    for name, ms, count in rows[:12]:
+        log(f"    {ms:9.4f} ms  x{count:<4d} {name[:90]}")
 
 
 # ------------------------------------------------------------ gradients
@@ -977,18 +946,6 @@ def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
 
 
 # -------------------------------------------------------------- fwd+bwd
-def device_busy_ms(fn):
-    """Kernel time the profiler saw during fn() (0.0 if it saw none)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    dev_time = lambda e: getattr(e, "self_device_time_total", 0.0)
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and dev_time(e) > 0]
-    return sum(dev_time(e) for e in rows) / 1e3, sorted(rows, key=dev_time, reverse=True)
-
-
 def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, label="phase 8"):
     """bench.py's metric on the card: one forward and the gradients of the
     L1 loss against a zero image with respect to the 7 scene parameters,
@@ -1047,8 +1004,8 @@ def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, label="phase 8"):
     else:
         log(f"  profiler: {busy:.4f} ms of kernel time in one step; busy share {100 * busy / step_ms:.1f}% "
             f"of the unprofiled {step_ms:.4f} ms")
-        for e in rows[:12]:
-            log(f"    {getattr(e, 'self_device_time_total', 0.0) / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+        for name, ms, count in rows[:12]:
+            log(f"    {ms:9.4f} ms  x{count:<4d} {name[:90]}")
     return step_ms
 
 
@@ -2801,6 +2758,8 @@ def tool_child(name: str, cfg: dict) -> int:
     extra = {}
     if name in PROBE_TOOLS:
         extra = {"result": result, "gt_renders": rec.renders}
+    elif name in BENCH_TOOLS:
+        extra = {"result": result}
     if name == "saturation_probe":
         # outside the counted run: the tool's K1 call against the plain K1
         from c3dgs_tpu_torch.tools.saturation_probe import saturation_report
@@ -3129,6 +3088,109 @@ def phase_probe_tools(xyz) -> dict:
     return total
 
 
+# ------------------------------------------------------------ phase 24
+# (tool, its arguments, its environment): the bench entry points at full
+# width; bench's and bench_render's iterations cut (30 -> 10 steps a short
+# block, 3 -> 2 blocks; 50 -> 10 renders), profile_bench's steps 3 -> 1 and
+# its rows 25 -> 12, cumsum_probe's calls 30 -> 5
+BENCH_TOOLS = ("bench", "bench_render", "profile_bench", "dispatch_probe", "cumsum_probe")
+BENCH_RUNS = (
+    ("bench", [], {"C3DGS_BENCH_ITERS": "10", "C3DGS_BENCH_BLOCKS": "2"}),
+    ("bench_render", [], {"C3DGS_BENCH_ITERS": "10"}),
+    ("profile_bench", ["--packed", "1", "--steps", "1", "--top", "12"], {}),
+    ("profile_bench", ["--packed", "0", "--steps", "1", "--top", "12"], {}),
+    ("dispatch_probe", [], {}),
+    ("cumsum_probe", ["--calls", "5"], {}),
+)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "dispatch_ms", "opacity_mode", "floor_ms", "vs_floor"]
+RENDER_KEYS = ["metric", "value", "unit", "vs_baseline", "dispatch_ms"]
+# max abs error against float64 of every formulation but the one-pass bf16
+# matmul (printed only) and torch.cumsum over dim 0, a sequential fp32 scan
+# on the card (1.745e-2 on the probe's rows), held bit for bit to numpy's
+CUMSUM_TOL = 1e-2
+
+
+def json_lines(text: str) -> list:
+    """The JSON objects a tool printed, one a line."""
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def check_bench_tool(name: str, argv: list, rec: dict, text: str) -> dict:
+    """Phase 24's checks of one bench tool's run; raises on the first
+    failure, logs its JSON lines and returns its kernel launches."""
+    r, lines = rec["result"], json_lines(text)
+    for line in lines:
+        log(f"  {name} {' '.join(argv)}: {json.dumps(line)}")
+    if name == "bench":
+        (line,) = lines
+        assert list(line) == BENCH_KEYS and list(line["floor_ms"]) == ["pair_math", "row_ops", "sorts", "total"], line
+        assert line["metric"] == f"rasterize_fwd_bwd_ms_per_frame_1920x1080_{BENCH_N}g" and line["unit"] == "ms"
+        assert finite(line["value"], line["dispatch_ms"], *line["floor_ms"].values()) and line["value"] > 0, line
+        assert f"# instances={r['instances']} -> capacity bucket" in text, "no probe line"
+        assert r["bitwise_repeatable"], "the bench's gradients are not bitwise repeatable"
+        log(f"  bench: {r['instances']} instances, grad_total {r['grad_total']}, buckets {r['buckets']}, "
+            f"{r['steps']} steps, overflow 0, gradients bitwise repeatable")
+    elif name == "bench_render":
+        assert [line["metric"] for line in lines] == [
+            f"render_fwd_ms_per_frame_1920x1080_{BENCH_N}g_{m}" for m in ("dense", "indexed")], lines
+        assert all(list(line) == RENDER_KEYS and finite(line["value"], line["dispatch_ms"]) for line in lines), lines
+        assert not r["blocked_colors"], "a 300k-splat indexed scene evaluates its colors densely"
+    elif name == "profile_bench":
+        (line,) = lines
+        assert list(line) == ["packed", "steps", "device_total_ms", "top"] and line["top"], line
+        assert line["device_total_ms"] > 0 and line["packed"] == int(argv[1]), line
+    elif name == "dispatch_probe":
+        (line,) = lines
+        assert list(line) == ["one_step_ms", "two_step_ms_per_frame", "dispatch_amortized_ms"], line
+        assert finite(*line.values()), line
+        log(f"  dispatch_probe: instances of the two cameras {r['instances']}")
+    else:
+        (line,) = lines
+        assert list(line) == ["cumsum", "transposed", "twolevel", "matmul", "matmul_hp", "matmul_bf16"], line
+        for f, v in line.items():
+            assert finite(v["ms"], v["max_abs_err"]), (f, v)
+            if f == "cumsum":  # the outer-dimension scan adds one row at a time: fp32's own error
+                assert v["equals_sequential_fp32"], (f, v)
+            elif f != "matmul_bf16":
+                assert v["max_abs_err"] < CUMSUM_TOL, (f, v)
+        log(f"  cumsum_probe: torch.cumsum(x, 0) equals the sequential fp32 scan bit for bit (its error "
+            f"{r['sequential_fp32_err']:.3e}); the others under {CUMSUM_TOL:g} but the one-pass bf16 matmul "
+            f"({line['matmul_bf16']['max_abs_err']:.3e})")
+    got = {k: v for k, v in rec["launches"].items() if v}
+    assert got == r.get("calls", {}), f"{name}: launches {got}, its calls {r.get('calls')}"
+    log(f"  {name}: launches {json.dumps(got)}, equal to its calls; card {r['card']}")
+    return got
+
+
+def phase_bench_tools() -> dict:
+    """Phase 24: the bench entry points, each in a child process with the
+    depth BENCH_RUNS cuts; returns their summed kernel launches."""
+    log("== phase 24: the bench entry points (bench, bench_render, profile_bench --packed 1 and 0, dispatch_probe, "
+        "cumsum_probe), one child process each")
+    torch.cuda.empty_cache()  # the children share the card with this process
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        for i, (name, argv, env) in enumerate(BENCH_RUNS):
+            out = Path(tmp) / f"{i}_{name}"
+            out.mkdir()
+            cfg = dict(argv=[*argv, "--device", DEVICE], out=str(out / "record.json"))
+            rec, text, seconds = run_tool("phase 24", name, out, cfg, env)
+            cuts = " ".join(f"{k}={v}" for k, v in env.items())
+            log(f"  {name} {' '.join(argv)} {cuts}: exit 0 in {seconds:.1f} s")
+            for k, v in check_bench_tool(name, argv, rec, text).items():
+                total[k] = total.get(k, 0) + v
+    log(f"  phase 24 launches: {json.dumps(total)}; card {smi('name,power.limit')}")
+    return total
+
+
+def timed(n: int, fn, *args, **kw):
+    """fn(*args, **kw), then `== phase n: done (seconds)`."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"== phase {n}: done ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -3141,53 +3203,59 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    card = phase_build()
+    card = timed(1, phase_build)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
-    phase_small()
+    timed(2, phase_small)
+    t0 = time.perf_counter()
     scene, knn_s = bench_scene(DEVICE, BENCH_N)
     log(f"  bench scene: {BENCH_N} splats, kNN scale init {knn_s:.2f} s on the card")
     k1, settings, ctx = phase_k1(scene, clock_mhz)
-    launches, serve_ms, cams = phase_serve(scene, settings)
+    log(f"== phase 3: done ({time.perf_counter() - t0:.1f} s)")
+    launches, serve_ms, cams = timed(4, phase_serve, scene, settings)
     k1["launches"] = launches[k1["name"]]
-    phase_breakdown(scene, settings)
-    phase_grads()
-    k2, red_ms = phase_k2(ctx, clock_mhz)
-    phase_fwd_bwd(scene, settings, k2["ms"], red_ms)
+    timed(5, phase_breakdown, scene, settings)
+    timed(6, phase_grads)
+    k2, red_ms = timed(7, phase_k2, ctx, clock_mhz)
+    timed(8, phase_fwd_bwd, scene, settings, k2["ms"], red_ms)
     base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
-    train_launches, _ = phase_train(scene, base)
+    train_launches, _ = timed(9, phase_train, scene, base)
     k1["launches"] += train_launches[k1["name"]]  # serving's 8 plus training's steps and probe
     k2["launches"] = train_launches[k2["name"]]
     # the per-tile family (packed=False)
-    k3, settings_pt, ctx_pt = phase_k3(scene, settings, clock_mhz)
-    k4, red_pt_ms = phase_k4(scene, ctx_pt, clock_mhz)
-    k3["launches"] = phase_serve_per_tile(scene, cams)[k3["name"]]
-    phase_grads_per_tile()
-    phase_fwd_bwd(scene, settings_pt, k4["ms"], red_pt_ms, label="phase 14")
-    train_pt, _ = phase_train_steps(scene, dataclasses.replace(base, packed=False))
+    k3, settings_pt, ctx_pt = timed(10, phase_k3, scene, settings, clock_mhz)
+    k4, red_pt_ms = timed(11, phase_k4, scene, ctx_pt, clock_mhz)
+    k3["launches"] = timed(12, phase_serve_per_tile, scene, cams)[k3["name"]]
+    timed(13, phase_grads_per_tile)
+    timed(14, phase_fwd_bwd, scene, settings_pt, k4["ms"], red_pt_ms, label="phase 14")
+    train_pt, _ = timed(15, phase_train_steps, scene, dataclasses.replace(base, packed=False))
     k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
     k4["launches"] = train_pt[k4["name"]]
-    probes = phase_probes()
-    compress_launches, compressed = phase_compress(scene, cams, serve_ms)
+    probes = timed(16, phase_probes)
+    compress_launches, compressed = timed(17, phase_compress, scene, cams, serve_ms)
     k1["launches"] += compress_launches[k1["name"]]  # sensitivity, finetune and serving the npz
     k2["launches"] += compress_launches[k2["name"]]  # sensitivity and finetune
-    cli_launches = phase_cli(scene)
+    cli_launches = timed(18, phase_cli, scene)
     k1["launches"] += cli_launches[k1["name"]]  # the CLIs' steps, evals, sensitivity, finetune, renders
     k2["launches"] += cli_launches[k2["name"]]  # the CLIs' steps, sensitivity and finetune
-    pose_launches = phase_pose(scene, cams, compressed)
+    pose_launches = timed(19, phase_pose, scene, cams, compressed)
     k1["launches"] += pose_launches[k1["name"]]  # pose and joint steps, sensitivity, finetune, renders
     k2["launches"] += pose_launches[k2["name"]]  # pose and joint steps, sensitivity and finetune
-    multi = phase_multi(scene, settings)
+    multi = timed(20, phase_multi, scene, settings)
     k1["launches"] += multi[k1["name"]]  # every rank's sharded and reference renders and steps
     k2["launches"] += multi[k2["name"]]
-    other_shape, small_rows = phase_tiles(scene, cams)
+    other_shape, small_rows = timed(21, phase_tiles, scene, cams)
     xyz = scene.xyz.detach().cpu().numpy()
     del scene, cams, compressed, ctx, ctx_pt
-    tools = phase_tools()
+    tools = timed(22, phase_tools)
     k1["launches"] += tools[k1["name"]]  # the tools' GT renders, train steps, evals, sensitivity, finetune
     k2["launches"] += tools[k2["name"]]  # their train steps, sensitivity and finetune
-    last = phase_probe_tools(xyz)
+    last = timed(23, phase_probe_tools, xyz)
     k1["launches"] += last[k1["name"]]  # the probes' renders, train steps, every dcn rank's step and reference
     k2["launches"] += last[k2["name"]]  # the train steps, every dcn rank's step and reference
+    benches = timed(24, phase_bench_tools)
+    for k in (k1, k2, k3, k4):  # the benches' probes, steps and renders; profile_bench --packed 0's K3 / K4
+        k["launches"] += benches.get(k["name"], 0)
+    log("== phase 25: the kernels line, the card and the status")
     log("small-scene kernel figures at 16x8 and 32x32 (no main path): " + json.dumps(small_rows))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k3, k4, *probes, *other_shape]}), flush=True)
