@@ -114,6 +114,9 @@ def training(
                     # degradation); later frames render at the grown bucket
                     print(f"[capacity] overflow -> bucket {capacity.capacity}")
                 capacity.note_clamped(f"step {it}", n_inst, overflow)
+                clipped = int(m["clipped"])
+                if clipped:
+                    print(f"[binning] step {it}: {clipped} tiles dropped past the per-splat tile cap")
                 it += 1
                 loss = float(m["loss"])
                 if not np.isfinite(loss):

@@ -17,6 +17,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import losses as L
 from ..render.capacity import CapacityPolicy
 from ..render.types import settings_from_intrinsic
+from ..spans import span
 from ..train import trainer
 from .lpips import UNAVAILABLE_REASON as LPIPS_UNAVAILABLE_REASON
 
@@ -32,14 +33,15 @@ def render_full(scene, extrinsic_vector, settings, bg, policy=None, device: Devi
     it, which for a forward-only render sizes nothing (a per-tile render's
     grad_overflow is counted against the settings' grad capacity, the slot
     domain plus two chunks per tile unless set)."""
-    dev = resolve_device(device)
-    policy = policy or CapacityPolicy()
-    for attempt in range(1, 9):
-        out = trainer.render_scene(scene, extrinsic_vector, policy.apply(settings), bg, device=dev)
-        if not policy.update(int(out["num_instances"]), int(out["overflow"])):
-            break
-    policy.check_whole(int(out["num_instances"]), int(out["overflow"]))
-    out["renders"] = attempt
+    with span("view"):
+        dev = resolve_device(device)
+        policy = policy or CapacityPolicy()
+        for attempt in range(1, 9):
+            out = trainer.render_scene(scene, extrinsic_vector, policy.apply(settings), bg, device=dev)
+            if not policy.update(int(out["num_instances"]), int(out["overflow"])):
+                break
+        policy.check_whole(int(out["num_instances"]), int(out["overflow"]))
+        out["renders"] = attempt
     return out
 
 

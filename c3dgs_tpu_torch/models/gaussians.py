@@ -34,6 +34,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import misc, quantize, quat, sh as sh_ops
 from ..ops.quantize import ObserverState
 from ..ops.segment import gather_rows
+from ..spans import span
 
 # observer order of the JAX QuantState
 QUANT_FIELDS = (
@@ -255,17 +256,18 @@ class GaussianScene(nn.Module):
         quantization."""
         if not self.quantization:
             return self
-        seen = {
-            "features_dc": self.features_dc,
-            "features_rest": self.features_rest,
-            "opacity": torch.sigmoid(self.opacity),
-            "scaling": quat.normalize(torch.relu(self.scaling)),
-            "scaling_factor": self.scaling_factor,
-            "rotation": self.rotation,
-        }
-        for name, x in seen.items():
-            if x is not None:
-                getattr(self, f"quant_{name}").copy_(torch.stack(quantize.observe(self.observer(name), x)))
+        with span("accessors"):
+            seen = {
+                "features_dc": self.features_dc,
+                "features_rest": self.features_rest,
+                "opacity": torch.sigmoid(self.opacity),
+                "scaling": quat.normalize(torch.relu(self.scaling)),
+                "scaling_factor": self.scaling_factor,
+                "rotation": self.rotation,
+            }
+            for name, x in seen.items():
+                if x is not None:
+                    getattr(self, f"quant_{name}").copy_(torch.stack(quantize.observe(self.observer(name), x)))
         return self
 
     # --------------------------------------------------------- reorg / modes

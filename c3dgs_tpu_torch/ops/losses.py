@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..spans import span
+
 
 def abs_like_jax(x: torch.Tensor) -> torch.Tensor:
     """|x| whose derivative at 0 is 1, as jnp.abs's is; torch.abs's is 0.
@@ -72,7 +74,8 @@ class _DepthwiseConvSame(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (kernel,) = ctx.saved_tensors
-        return _conv_fp32(grad_out.contiguous(), torch.flip(kernel, (-2, -1))), None
+        with span("loss"):
+            return _conv_fp32(grad_out.contiguous(), torch.flip(kernel, (-2, -1))), None
 
 
 def _depthwise_conv_same(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import span
+
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(N, ...) values, (N,) integer ids in [0, num_segments) -> the
@@ -39,7 +41,8 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return segment_sum(g, idx, ctx.rows), None
+        with span("table_grads"):
+            return segment_sum(g, idx, ctx.rows), None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..spans import span
 from . import tiles, tiles_packed
 from .binning import (
     CHUNK,
@@ -183,8 +184,10 @@ class BlendGaussians(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, gid_sorted, j_sorted, starts, ends, nchunks, grad_base, emit_cum,
                 tile_ids, grad_lo, grad_hi, tiles_x, cap, grad_cap, partial_coverage, fast_grad):
-        fields = _build_fields(table, gid_sorted, j_sorted)
-        out = tiles.forward(fields, tile_ids, starts, ends, nchunks, tiles_x)
+        with span("stage"):
+            fields = _build_fields(table, gid_sorted, j_sorted)
+        with span("blend"):
+            out = tiles.forward(fields, tile_ids, starts, ends, nchunks, tiles_x)
         ctx.save_for_backward(fields, tile_ids, starts, ends, nchunks, grad_base, emit_cum, out)
         ctx.grad_range = (grad_lo, grad_hi)
         ctx.statics = (tiles_x, cap, grad_cap, partial_coverage, fast_grad)
@@ -194,10 +197,12 @@ class BlendGaussians(torch.autograd.Function):
     def backward(ctx, grad_out):
         fields, tile_ids, starts, ends, nchunks, grad_base, emit_cum, out = ctx.saved_tensors
         tiles_x, cap, grad_cap, partial_coverage, fast_grad = ctx.statics
-        grads = tiles.backward(fields, tile_ids, starts, ends, nchunks, grad_base, out, grad_out,
-                               tiles_x, grad_cap)
-        d_table = _reduce_instance_grads(grads, emit_cum, cap, *ctx.grad_range, partial_coverage,
-                                         compensated=not fast_grad)
+        with span("blend_bwd"):
+            grads = tiles.backward(fields, tile_ids, starts, ends, nchunks, grad_base, out, grad_out,
+                                   tiles_x, grad_cap)
+        with span("reduction"):
+            d_table = _reduce_instance_grads(grads, emit_cum, cap, *ctx.grad_range, partial_coverage,
+                                             compensated=not fast_grad)
         return (d_table,) + (None,) * 15
 
 
@@ -233,11 +238,13 @@ class BlendGaussiansPacked(torch.autograd.Function):
         if starts.shape[0] != t_out or gid_sorted.shape[0] != cap:
             raise ValueError(f"expected {t_out} tile ranges and {cap} slots, got {starts.shape[0]} and "
                              f"{gid_sorted.shape[0]}")
-        fields = _build_fields_packed(
-            table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tiles_x,
-            num_tiles, cap_total,
-        )
-        out = tiles_packed.forward(fields, tile_lo, meta, starts, ends)
+        with span("stage"):
+            fields = _build_fields_packed(
+                table, gid_sorted, tid_sorted, sent_sorted, j_sorted, tiles_x,
+                num_tiles, cap_total,
+            )
+        with span("blend"):
+            out = tiles_packed.forward(fields, tile_lo, meta, starts, ends)
         ctx.save_for_backward(fields, tile_lo, meta, starts, ends, out, perm, emit_cum)
         ctx.statics = (cap_total, fast_grad)
         return out
@@ -246,13 +253,15 @@ class BlendGaussiansPacked(torch.autograd.Function):
     def backward(ctx, grad_out):
         fields, tile_lo, meta, starts, ends, out, perm, emit_cum = ctx.saved_tensors
         cap_total, fast_grad = ctx.statics
-        grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, out, grad_out)
-        if perm is None:
-            # meta[0] * CHUNK stays a device tensor: no read back to the host
-            d_table = _reduce_instance_grads(grads, emit_cum, cap_total, 0, meta[0] * CHUNK, True,
-                                             compensated=not fast_grad)
-        else:
-            d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not fast_grad)
+        with span("blend_bwd"):
+            grads = tiles_packed.backward(fields, tile_lo, meta, starts, ends, out, grad_out)
+        with span("reduction"):
+            if perm is None:
+                # meta[0] * CHUNK stays a device tensor: no read back to the host
+                d_table = _reduce_instance_grads(grads, emit_cum, cap_total, 0, meta[0] * CHUNK, True,
+                                                 compensated=not fast_grad)
+            else:
+                d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not fast_grad)
         return (d_table,) + (None,) * 16
 
 
@@ -331,27 +340,32 @@ def render(
     opacity (N,), bg (3,), shs (N,K,3) or colors_precomp (N,3);
     viewspace_offset (N,2) is added to the projected means in NDC*[W/2,H/2]
     units. Returns the image, final_T and the binning counters."""
-    prep = preprocess(means3d, cov3d, opacity, extrinsic_vector, settings, shs, colors_precomp)
-    if viewspace_offset is not None:
-        scale = torch.tensor(
-            [0.5 * settings.width, 0.5 * settings.height], dtype=means3d.dtype, device=means3d.device
-        )
-        prep = prep._replace(mean2d=prep.mean2d + viewspace_offset * scale)
+    with span("preprocess"):
+        prep = preprocess(means3d, cov3d, opacity, extrinsic_vector, settings, shs, colors_precomp)
+        if viewspace_offset is not None:
+            scale = torch.tensor(
+                [0.5 * settings.width, 0.5 * settings.height], dtype=means3d.dtype, device=means3d.device
+            )
+            prep = prep._replace(mean2d=prep.mean2d + viewspace_offset * scale)
 
-    binning = bin_gaussians(Preprocessed(*(t.detach() for t in prep)), settings)
-    table = per_gaussian_table(prep, binning.offset)
-    n = means3d.shape[0]
-    cap, _ = settings.resolve_caps(n)
+    with span("binning"):
+        binning = bin_gaussians(Preprocessed(*(t.detach() for t in prep)), settings)
+        table = per_gaussian_table(prep, binning.offset)
+        n = means3d.shape[0]
+        cap, _ = settings.resolve_caps(n)
+        # the grad bucket; packed, the execution capacity: the sorted content
+        # ends at chunks_exec*CHUNK, and a probed grad bucket clamps the
+        # executed chunks, counted in grad_overflow
+        exec_cap = settings.resolve_grad_cap(n)
+        if settings.packed:
+            nc_exec = exec_cap // CHUNK
+            chunks_c = torch.clamp(binning.chunks_exec, max=nc_exec)
+            grad_overflow = torch.clamp(binning.chunks_exec - nc_exec, min=0) * CHUNK
+            grad_total = binning.chunks_exec * CHUNK
+            zero = torch.zeros_like(chunks_c)
+            meta = torch.stack([chunks_c, zero, zero + settings.num_tiles, zero + cap])
     if not settings.packed:
-        return _render_per_tile(prep, binning, table, settings, bg, cap, settings.resolve_grad_cap(n))
-    # execution capacity: the sorted content ends at chunks_exec*CHUNK; a
-    # probed grad bucket clamps the executed chunks, counted in grad_overflow
-    exec_cap = settings.resolve_grad_cap(n)
-    nc_exec = exec_cap // CHUNK
-    chunks_c = torch.clamp(binning.chunks_exec, max=nc_exec)
-    grad_overflow = torch.clamp(binning.chunks_exec - nc_exec, min=0) * CHUNK
-    zero = torch.zeros_like(chunks_c)
-    meta = torch.stack([chunks_c, zero, zero + settings.num_tiles, zero + cap])
+        return _render_per_tile(prep, binning, table, settings, bg, cap, exec_cap)
     out_tiles = blend_gaussians_packed(
         table,
         binning.gid_sorted[:exec_cap],
@@ -371,11 +385,12 @@ def render(
         cap,
         settings.fast_grad,
     )
-    # SOFT clamp: tiles whose sentinel lies past the executed chunks never
-    # flushed; they degrade to background instead of unwritten memory
-    first_unflushed = binning.tile_lo[chunks_c.long()]
-    complete = torch.arange(settings.num_tiles, device=means3d.device) < first_unflushed
-    image, final_t = assemble_image(out_tiles, settings, complete, bg)
+    with span("blend"):
+        # SOFT clamp: tiles whose sentinel lies past the executed chunks never
+        # flushed; they degrade to background instead of unwritten memory
+        first_unflushed = binning.tile_lo[chunks_c.long()]
+        complete = torch.arange(settings.num_tiles, device=means3d.device) < first_unflushed
+        image, final_t = assemble_image(out_tiles, settings, complete, bg)
     return {
         "render": image,
         "final_T": final_t,
@@ -383,7 +398,7 @@ def render(
         "visibility_filter": prep.radius > 0,
         "num_instances": binning.num_instances,
         "overflow": binning.overflow,
-        "grad_total": binning.chunks_exec * CHUNK,
+        "grad_total": grad_total,
         "grad_overflow": grad_overflow,
         "clipped": binning.clipped,
         "culled": binning.culled,
@@ -400,7 +415,8 @@ def _render_per_tile(prep, binning, table, settings: RasterSettings, bg, cap: in
         binning.grad_base, binning.emit_cum, tile_ids, (0, binning.grad_total), settings.tiles_x,
         cap, grad_cap, True, settings.fast_grad,
     )
-    image, final_t = assemble_image(out_tiles, settings, None, bg)
+    with span("blend"):
+        image, final_t = assemble_image(out_tiles, settings, None, bg)
     return {
         "render": image,
         "final_T": final_t,

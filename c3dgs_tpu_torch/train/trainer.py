@@ -34,6 +34,7 @@ from ..ops import camera_math, misc
 from ..ops import sh as sh_ops
 from ..render.rasterizer import render
 from ..render.types import RasterSettings
+from ..spans import span
 from . import densify as D
 
 PARAM_FIELDS = (
@@ -192,29 +193,31 @@ def render_scene(
     already live there, while the camera vector and bg may be numpy arrays
     or tensors anywhere."""
     _check_device(scene, device)
-    ev = torch.as_tensor(extrinsic_vector, dtype=torch.float32, device=scene.device)
-    bg = torch.as_tensor(bg, dtype=torch.float32, device=scene.device)
-    settings = settings_with_degree(settings, scene.active_sh_degree)
-    cov = scene.get_covariance(scaling_modifier) if cov3d is None else cov3d
-    use_blocked = scene.is_color_indexed and (
-        blocked_colors or (blocked_colors is None and scene.capacity >= BLOCKED_COLORS_MIN)
-    )
-    shs = colors = None
-    xyz = scene.get_xyz()
-    if use_blocked:
-        dirs = xyz - camera_math.camera_center_from_extrinsic(ev)
-        # the guarded normalization of preprocess (NaN-free padded rows)
-        dirs = dirs * torch.rsqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-20)
-        colors = sh_ops.sh_to_rgb_indexed_blocked(
-            settings.sh_degree, scene.get_features_raw(), scene.feature_indices, dirs,
-            clamp_color=settings.clamp_color,
+    with span("accessors"):
+        ev = torch.as_tensor(extrinsic_vector, dtype=torch.float32, device=scene.device)
+        bg = torch.as_tensor(bg, dtype=torch.float32, device=scene.device)
+        settings = settings_with_degree(settings, scene.active_sh_degree)
+        cov = scene.get_covariance(scaling_modifier) if cov3d is None else cov3d
+        use_blocked = scene.is_color_indexed and (
+            blocked_colors or (blocked_colors is None and scene.capacity >= BLOCKED_COLORS_MIN)
         )
-    else:
-        shs = scene.get_features()
+        shs = colors = None
+        xyz = scene.get_xyz()
+        if use_blocked:
+            dirs = xyz - camera_math.camera_center_from_extrinsic(ev)
+            # the guarded normalization of preprocess (NaN-free padded rows)
+            dirs = dirs * torch.rsqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-20)
+            colors = sh_ops.sh_to_rgb_indexed_blocked(
+                settings.sh_degree, scene.get_features_raw(), scene.feature_indices, dirs,
+                clamp_color=settings.clamp_color,
+            )
+        else:
+            shs = scene.get_features()
+        opacity = scene.get_opacity()[:, 0]
     return render(
         xyz,
         cov,
-        scene.get_opacity()[:, 0],
+        opacity,
         ev,
         settings,
         bg,
@@ -231,9 +234,11 @@ def loss_and_grads(scene: GaussianScene, extrinsic_vector, gt_image, settings: R
     params = scene_params(scene)
     vs = torch.zeros((scene.capacity, 2), dtype=torch.float32, device=scene.device, requires_grad=True)
     out = render_scene(scene, extrinsic_vector, settings, bg, viewspace_offset=vs, device=scene.device)
-    gt = torch.as_tensor(gt_image, dtype=torch.float32, device=scene.device)
-    loss = L.photometric_loss(out["render"], gt, opt.lambda_dssim)
-    g = torch.autograd.grad(loss, [*params.values(), vs], allow_unused=True)
+    with span("loss"):
+        gt = torch.as_tensor(gt_image, dtype=torch.float32, device=scene.device)
+        loss = L.photometric_loss(out["render"], gt, opt.lambda_dssim)
+    with span("backward"):
+        g = torch.autograd.grad(loss, [*params.values(), vs], allow_unused=True)
     grads = {k: torch.zeros_like(p) if gk is None else gk for (k, p), gk in zip(params.items(), g)}
     return loss.detach(), out, grads, g[-1]
 
@@ -250,22 +255,27 @@ def train_step(
 ) -> Tuple[TrainState, dict]:
     """One optimization step (train.py:58-106): observer EMA -> render ->
     photometric loss -> grads -> Adam -> densify stats. Updates the state in
-    place; the metrics are tensors on the scene's device."""
-    _check_device(state.scene, device)
-    scene = state.scene.update_observers()
-    gt = torch.as_tensor(gt_image, dtype=torch.float32, device=scene.device)
-    loss, out, grads, vs_grad = loss_and_grads(scene, extrinsic_vector, gt, settings, bg, opt)
-    adam_update(state.opt_state, scene_params(scene), grads, make_lr_schedules(opt, spatial_lr_scale))
-    state.stats = D.add_densification_stats(state.stats, vs_grad, out["radii"])
-    state.step += 1
-    metrics = {
-        "loss": loss,
-        "psnr": L.psnr(out["render"].detach(), gt)[0, 0],
-        "num_instances": out["num_instances"],
-        "overflow": out["overflow"],
-        "grad_total": out["grad_total"],
-        "grad_overflow": out["grad_overflow"],
-    }
+    place; the metrics are tensors on the scene's device, the binning's
+    counters among them (`clipped`: tiles dropped past the per-splat tile
+    cap, which the step trained without)."""
+    with span("train_step"):
+        _check_device(state.scene, device)
+        scene = state.scene.update_observers()
+        gt = torch.as_tensor(gt_image, dtype=torch.float32, device=scene.device)
+        loss, out, grads, vs_grad = loss_and_grads(scene, extrinsic_vector, gt, settings, bg, opt)
+        with span("optimizer"):
+            adam_update(state.opt_state, scene_params(scene), grads, make_lr_schedules(opt, spatial_lr_scale))
+            state.stats = D.add_densification_stats(state.stats, vs_grad, out["radii"])
+        state.step += 1
+        metrics = {
+            "loss": loss,
+            "psnr": L.psnr(out["render"].detach(), gt)[0, 0],
+            "num_instances": out["num_instances"],
+            "overflow": out["overflow"],
+            "grad_total": out["grad_total"],
+            "grad_overflow": out["grad_overflow"],
+            "clipped": out["clipped"],
+        }
     return state, metrics
 
 
