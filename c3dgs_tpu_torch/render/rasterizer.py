@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from ..spans import span
-from . import tiles, tiles_packed
+from . import segment_sum, tiles, tiles_packed
 from .binning import (
     CHUNK,
     NUM_FIELDS,
@@ -114,19 +114,28 @@ def _segment_prefix_diff(d_pre, end_idx, valid, compensated: bool):
     return seg.T
 
 
-def _reduce_instance_grads_packed(grads, perm, boundaries, compensated: bool = False):
+def _reduce_instance_grads_packed(grads, perm, boundaries, meta, exact: bool = False):
     """(NUM_FIELDS, exec_cap) slot-aligned grads -> (N, NUM_FIELDS) per
-    gaussian: rows reordered gaussian-major by the binning permutation,
-    then per-gaussian sums as prefix differences at the emission
-    boundaries (emit_cum). Entries past the emitted total, or whose sorted
-    slot lies past the execution capacity, are masked before the prefix.
+    gaussian, each gaussian's emissions (the segments of the emission
+    boundaries emit_cum) read through the binning permutation. Entries past
+    the emitted total, or whose sorted slot lies past the execution
+    capacity, add nothing.
 
-    The whole permutation is gathered: it is indexed by emission (payload
+    exact=True sums each segment directly in float64
+    (segment_sum.segment_sum: the kernels on the card, which read no slot
+    past K1/K2's executed chunks meta[0]*CHUNK).
+    Otherwise (fast_grad) the rows are gathered gaussian-major and the sums
+    are float32 prefix differences at the boundaries, which err by
+    eps * |prefix|.
+
+    The whole permutation is read: it is indexed by emission (payload
     order, culled emissions included), and the emissions can outnumber
     the execution capacity, whose bound is on the KEPT slots. The
     reference slices it to exec_cap entries
     (c3dgs_tpu/render/rasterizer.py:296), which drops every emission past
     that index from the gradient when the bucket is tight (ROADMAP C)."""
+    if exact:
+        return segment_sum.segment_sum(grads, perm, boundaries, meta)
     live = NUM_USED_FIELDS
     n = boundaries.shape[0]
     rows = grads.shape[1]
@@ -135,7 +144,7 @@ def _reduce_instance_grads_packed(grads, perm, boundaries, compensated: bool = F
     idx = torch.arange(p.shape[0], device=grads.device)
     keep = (idx < boundaries[-1]) & (p < rows)
     d_pre = torch.where(keep[None, :], d_pre, torch.zeros_like(d_pre))
-    seg = _segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
+    seg = _segment_prefix_diff(d_pre, boundaries, boundaries > 0, False)
     return torch.cat([seg, torch.zeros((n, NUM_FIELDS - live), dtype=seg.dtype, device=seg.device)], 1)
 
 
@@ -224,12 +233,13 @@ def blend_gaussians(table, gid_sorted, j_sorted, starts, ends, nchunks, grad_bas
 class BlendGaussiansPacked(torch.autograd.Function):
     """Stage the sorted fields and composite them with K1; returns the
     (t_out, OUT_ROWS, PIX) tile blocks. The backward runs K2 on the
-    cotangent of those blocks and reduces its per-slot rows to d_table,
-    compensated unless `fast_grad`: through `perm` after a training
-    binning, or, with perm None (an inference binning, or one device's
-    routed array under tile sharding), by the rows' pre-sort slot keys over
-    the executed chunks [0, meta[0]*CHUNK), as the reference does
-    (c3dgs_tpu/render/rasterizer.py:365-372)."""
+    cotangent of those blocks and reduces its per-slot rows to d_table:
+    through `perm` after a training binning (unless `fast_grad`, float64
+    segment sums, the segment_sum kernel on the card), or, with perm None
+    (an inference binning, or one device's routed array under tile
+    sharding), by the rows' pre-sort slot keys over the executed chunks
+    [0, meta[0]*CHUNK), compensated unless `fast_grad`, as the reference
+    does (c3dgs_tpu/render/rasterizer.py:365-372)."""
 
     @staticmethod
     def forward(ctx, table, gid_sorted, tid_sorted, sent_sorted, j_sorted,
@@ -261,7 +271,7 @@ class BlendGaussiansPacked(torch.autograd.Function):
                 d_table = _reduce_instance_grads(grads, emit_cum, cap_total, 0, meta[0] * CHUNK, True,
                                                  compensated=not fast_grad)
             else:
-                d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, compensated=not fast_grad)
+                d_table = _reduce_instance_grads_packed(grads, perm, emit_cum, meta, exact=not fast_grad)
         return (d_table,) + (None,) * 16
 
 

@@ -239,9 +239,8 @@ def backward(fields, tile_lo, meta, starts, ends, totals, grad_out) -> torch.Ten
     `totals` are K1's blocks for these fields, `grad_out` the cotangent of
     those blocks (autograd may hand over an expanded or strided tensor; it
     is made contiguous here). The kernel computes in fp32 in both fast_grad
-    modes: fast_grad only drops the compensation of the reduction that
-    follows. CUDA tensors launch K2 (or raise); CPU tensors run
-    backward_plain."""
+    modes: fast_grad only selects how the reduction that follows sums.
+    CUDA tensors launch K2 (or raise); CPU tensors run backward_plain."""
     t_out = _check(fields, tile_lo, meta, starts, ends)
     grad_out = grad_out.contiguous()
     _check_blocks(totals, grad_out, t_out, fields.device)

@@ -60,8 +60,10 @@ class RasterSettings:
     # per-instance gradient buffer capacity; in packed mode it doubles as
     # the EXECUTION capacity of the forward kernel. 0 => the slot domain
     grad_capacity: int = 0
-    # the reduction after the packed backward (K2) skips its error
-    # compensation; K2 itself computes in fp32 in both modes
+    # the reduction after the backward kernel takes float32 prefix
+    # differences; off, it sums exactly (float64 segment sums after a
+    # training binning, compensated prefixes otherwise). The kernels
+    # compute in fp32 in both modes
     fast_grad: bool = True
     # packed-chunk kernels (render/tiles_packed.py, K1/K2); False selects
     # the per-tile kernel family (render/tiles.py, K3/K4), whose grad

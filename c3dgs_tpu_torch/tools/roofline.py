@@ -56,6 +56,15 @@ def bwd_work(walked: int, n_tiles: int, grad_cols: int, int_arrays: int, stats: 
             stats["exp_pairs"] + 3 * stats["alpha_pairs"], 12 * stats["pairs"] + 40 * stats["alpha_pairs"])
 
 
+def segment_sum_work(n: int, emitted: int, kept: int):
+    """The least work of the exact reduction (csrc/segment_sum.cu), as
+    fwd_work's: `emitted` perm entries and the (n,) emit_cum read once, 9
+    f32 rows of each of the `kept` emissions read, the (n, 16) f32 rows
+    written; one float64 add per kept value, no special functions (the
+    float64 adds are far under any bound, so they count as no fp32 flops)."""
+    return 4 * emitted + 4 * n + 9 * 4 * kept + 16 * 4 * n, 0, 0
+
+
 def card(device: torch.device | str) -> str:
     """The card's name and power limit as nvidia-smi gives them
     (--query-gpu=name,power.limit), or "cpu"."""

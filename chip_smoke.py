@@ -25,7 +25,8 @@ Phases (any failed check raises, and the script exits non-zero):
   6. gradients on the card: the CUDA render's gradients (means, cov,
      opacity, extrinsic, colors or SH) on five small scenes against the
      port's oracle under autograd on the card and against the port's CPU
-     path; a clamped frame's gradients against the CPU path; the SSIM
+     path (the packed exact-mode backward launches the segment sum once);
+     a clamped frame's gradients against the CPU path; the SSIM
      gradient at 1080p against float64;
   7. K2 against its plain version at the bench frame (phase 3's staged
      fields and K1 blocks, the cotangent of bench.py's L1 loss against a
@@ -33,14 +34,18 @@ Phases (any failed check raises, and the script exits non-zero):
      time, its plain version's time, its bound, bitwise repeats, the slots
      walked per tile, the (slot, warp) pairs with any alpha > 0 that set
      its shuffle count, and the reduction's error per column against a
-     float64 index_add in both fast_grad modes;
+     float64 index_add in both fast_grad modes; the exact mode's kernel
+     (csrc/segment_sum.cu) against its plain version, twice bitwise, its
+     time beside its byte bound, the plain version's and
+     torch.Tensor.index_add_'s;
   8. fwd+bwd at the bench frame (bench.py's metric: one forward and the
      L1 loss's gradients with respect to the 7 scene parameters), its
      stage breakdown and the profiler's device busy share;
   9. train: the 300k scene with quantization and SH degree 3 through
      create_train_state, 10 train_steps, densify_step, grow_capacity,
-     reset_opacity_step and 2 more steps, with every kernel count reset
-     just before and read just after;
+     reset_opacity_step, 2 more steps and 2 in exact mode (fast_grad off,
+     as the benchmark's training cells run: one segment-sum launch each),
+     with every kernel count reset just before and read just after;
  10. K3 (the per-tile forward, packed=False) against its plain version at
      the bench frame (probe-exact per-tile buckets) and on the occluder,
      wall and boundary scenes; K3's time, its plain version's time and the
@@ -233,14 +238,14 @@ from c3dgs_tpu_torch.data import cameras, colmap
 from c3dgs_tpu_torch.eval import lpips, metrics
 from c3dgs_tpu_torch.models import gaussians, io_npz, io_ply
 from c3dgs_tpu_torch.ops import losses, morton, quat
-from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
+from c3dgs_tpu_torch.render import oracle, rasterizer, segment_sum, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import MAX_BINNING_CAP, TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
 from c3dgs_tpu_torch.tools.roofline import (FP32_FLOPS, HBM_BYTES_PER_S, SFU_PER_SM_CLOCK, SMS, bwd_work,
-                                            device_busy_ms, fwd_work, roofline)
+                                            device_busy_ms, fwd_work, roofline, segment_sum_work)
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
 LOG_EXIT_T = math.log(1e-6)
@@ -782,11 +787,12 @@ def small_scene_grads(packed: bool):
         (tiles.FORWARD_KERNEL, tiles.BACKWARD_KERNEL)
     for name, sc in grad_scenes().items():
         settings = RasterSettings(**sc[5], fast_grad=False, packed=packed)
-        before = (fwd.launches, bwd.launches)
+        before = (fwd.launches, bwd.launches, segment_sum.KERNEL.launches)
         g_card, _ = render_grads(rasterizer.render, sc, settings, DEVICE)
         torch.cuda.synchronize()
         assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1), \
             f"the CUDA render did not launch {fwd.name} and {bwd.name} once each"
+        assert segment_sum.KERNEL.launches == before[2] + packed, "the exact packed backward's segment sums"
         g_cpu, _ = render_grads(rasterizer.render, sc, settings, "cpu")
         g_oracle, _ = render_grads(oracle.render_oracle, sc, settings, DEVICE)
         check_grads(f"{name} vs oracle (card)", g_card, g_oracle)
@@ -907,15 +913,14 @@ def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
     d_pre = got[:9].T.double()[torch.clamp(perm, max=rows - 1)]
     ref = torch.zeros((b.emit_cum.shape[0], 9), dtype=torch.float64, device=DEVICE)
     ref.index_add_(0, owner[keep], d_pre[keep])
-    red_err = {}
-    for compensated in (False, True):
-        d = rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, compensated)
+    for exact in (False, True):
+        d = rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, meta, exact)
         col = (d[:, :9].double() - ref).abs().max(0).values
-        red_err["exact" if compensated else "fast"] = col.tolist()
-        log(f"  d_table vs float64 index_add, {'exact (compensated)' if compensated else 'fast_grad'}: "
+        log(f"  d_table vs float64 index_add, {'exact (segment sums)' if exact else 'fast_grad'}: "
             "max abs err per column " + " ".join(f"{v:.2e}" for v in col.tolist())
             + f"; column max |value| " + " ".join(f"{v:.2e}" for v in ref.abs().max(0).values.tolist()))
-    red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, False), reps=10)
+    red_ms = cuda_ms(lambda: rasterizer._reduce_instance_grads_packed(got, b.perm, b.emit_cum, meta), reps=10)
+    seg = segment_sum_row(got, meta, b, ref, owner[keep], d_pre[keep], total, clock_mhz)
 
     # the least time for K2's work at this frame (bwd_work): the 16
     # gradient rows of the execution capacity written, starts/ends read
@@ -942,7 +947,56 @@ def phase_k2(ctx, clock_mhz, plain_reps=3, label="phase 7"):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the blend's gradient
-    }, statistics.median(red_ms)
+    }, seg, statistics.median(red_ms)
+
+
+def segment_sum_row(grads, meta, b, ref, owner_kept, rows_kept, total, clock_mhz):
+    """The exact reduction's kernels at the bench frame: against their plain
+    version (float64 sums, each rounded once: 1 ulp apart at most, plus the
+    float64 sums' order) and twice bitwise, the error per column against the
+    float64 index_add `ref`; its time beside its byte bound, the plain
+    version's and that of torch.Tensor.index_add_ (float64, on the kept rows
+    already gathered), which the port never calls on the card. The row's
+    launches are the exact training steps' (phase 9), not these."""
+    perm, emit_cum = b.perm, b.emit_cum
+    before = segment_sum.KERNEL.launches
+    got = segment_sum.segment_sum(grads, perm, emit_cum, meta)
+    again = segment_sum.segment_sum(grads, perm, emit_cum, meta)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("the segment sum is not bitwise repeatable")
+    plain = segment_sum.segment_sum_plain(grads, perm, emit_cum, meta)
+    err = check_close("segment_sum vs its plain version", got, plain, atol=1e-13, rtol=2.0 ** -23)
+    col = (got[:, :9].double() - ref).abs().max(0).values
+    log("  segment_sum run twice: bitwise equal; vs float64 index_add: max abs err per column "
+        + " ".join(f"{v:.2e}" for v in col.tolist()))
+    buf = torch.empty_like(got)
+    rec = torch.empty((grads.shape[1], segment_sum.REC), dtype=torch.float32, device=DEVICE)
+    ms = cuda_ms(lambda: segment_sum.launch(grads, meta, perm, emit_cum, rec, buf), reps=20)
+    plain_ms = cuda_ms(lambda: segment_sum.segment_sum_plain(grads, perm, emit_cum, meta), reps=5)
+    sums = torch.zeros_like(ref)
+    lib_ms = cuda_ms(lambda: sums.zero_().index_add_(0, owner_kept, rows_kept), reps=5)
+    assert segment_sum.KERNEL.launches - before == 2 + 2 + 20  # the checked calls, cuda_ms' warm-up and reps
+    n, kept = emit_cum.shape[0], owner_kept.shape[0]
+    bound, bound_by = roofline(*segment_sum_work(n, min(total, perm.shape[0]), kept), clock_mhz)
+    log(f"  segment_sum {statistics.median(ms):.4f} ms median of {len(ms)} (min {min(ms):.4f}) over {n} splats, "
+        f"{kept} kept emissions; bound {bound:.4f} ms ({bound_by}; with a 32-byte sector per gathered float "
+        f"{(32 * 9 * kept + 68 * n + 4 * total) / HBM_BYTES_PER_S * 1e3:.4f}); plain "
+        f"{statistics.median(plain_ms):.4f} ms; index_add_ {statistics.median(lib_ms):.4f} ms")
+    return {
+        "name": segment_sum.KERNEL.name,
+        "route": "cuda",
+        "source": "c3dgs_tpu_torch/csrc/segment_sum.cu",
+        "replaces": segment_sum.KERNEL.replaces,
+        "launches": None,  # filled from the training run's exact steps
+        "kernels_per_launch": 2,  # each launch runs pass 1 (records) and pass 2 (sums)
+        "max_abs_err": err,
+        "ms": statistics.median(ms),
+        "plain_ms": statistics.median(plain_ms),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": statistics.median(lib_ms),  # torch.Tensor.index_add_, float64
+    }
 
 
 # -------------------------------------------------------------- fwd+bwd
@@ -1040,14 +1094,15 @@ def phase_train(scene, base):
     hist, step_ms = [], []
     probes = 0
 
-    def run(k):
+    def run(k, fast_grad=True):
         # the buckets follow the scene as it trains: the capacity policy
         # grows them (with its 1.3 headroom) after a step that needed more
         nonlocal state
+        settings = dataclasses.replace(base, fast_grad=fast_grad)
         for _ in range(k):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            state, m = trainer.train_step(state, ev, target, policy.apply(base), bg, opt, 1.0, device=DEVICE)
+            state, m = trainer.train_step(state, ev, target, policy.apply(settings), bg, opt, 1.0, device=DEVICE)
             b.record()
             b.synchronize()
             step_ms.append(a.elapsed_time(b))
@@ -1076,18 +1131,22 @@ def phase_train(scene, base):
     log(f"  grow_capacity -> {state.scene.capacity}; reset_opacity_step; probe-exact buckets: slots "
         f"{policy.capacity}, execution {policy.grad_capacity}")
     run(2)
+    assert segment_sum.KERNEL.launches == 0, "a fast_grad step launched the segment sum"
+    run(2, fast_grad=False)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.REGISTRY.values()}
-    log(f"  losses after: {[round(h[0], 6) for h in hist[10:]]}")
+    log(f"  losses after (the last 2 in exact mode): {[round(h[0], 6) for h in hist[10:]]}")
     log(f"  per step (instances, slot bucket, execution bucket): {[(h[3], h[4], h[5]) for h in hist]}")
     log(f"  kernel launches over {len(hist)} train_steps and {probes} bucket probe: {launches}")
     log(f"  ms per train_step: {[round(m, 3) for m in step_ms]}; median of steps 2-10 "
-        f"{statistics.median(step_ms[1:10]):.3f}")
+        f"{statistics.median(step_ms[1:10]):.3f}; the exact steps {step_ms[-2]:.3f}, {step_ms[-1]:.3f} (fast "
+        f"{step_ms[-4]:.3f}, {step_ms[-3]:.3f})")
     assert all(math.isfinite(h[0]) for h in hist), "non-finite loss"
     assert hist[9][0] < hist[0][0], "the loss did not fall over 10 steps"
     assert all(h[1] == 0 and h[2] == 0 for h in hist), f"overflow in training: {hist}"
     assert launches["tiles_packed_bwd"] == len(hist), launches
     assert launches["tiles_packed_fwd"] == len(hist) + probes, launches
+    assert launches[segment_sum.KERNEL.name] == 2, launches  # one per exact backward
     return launches, statistics.median(step_ms[1:10])
 
 
@@ -2577,7 +2636,7 @@ def tile_child(shape: str, cfg: dict) -> int:
     k1, settings, ctx = phase_k1(scene, clock_mhz, plain_reps=0, label=label)
     log(f"  {TILE_X}x{TILE_Y}: {settings.num_tiles} tiles, {int((~ctx.b.sent_sorted).sum())} instances at the bench "
         "frame")
-    k2, red_ms = phase_k2(ctx, clock_mhz, plain_reps=0, label=label)
+    k2, _, red_ms = phase_k2(ctx, clock_mhz, plain_reps=0, label=label)
     k3, settings_pt, ctx_pt = phase_k3(scene, settings, clock_mhz, plain_reps=0, label=label)
     k4, red_pt_ms = phase_k4(scene, ctx_pt, clock_mhz, plain_reps=0, label=label)
     del ctx, ctx_pt
@@ -3215,12 +3274,13 @@ def main() -> int:
     k1["launches"] = launches[k1["name"]]
     timed(5, phase_breakdown, scene, settings)
     timed(6, phase_grads)
-    k2, red_ms = timed(7, phase_k2, ctx, clock_mhz)
+    k2, seg, red_ms = timed(7, phase_k2, ctx, clock_mhz)
     timed(8, phase_fwd_bwd, scene, settings, k2["ms"], red_ms)
     base = RasterSettings(width=1920, height=1080, tanfovx=math.tan(0.6), tanfovy=math.tan(0.6), sh_degree=3)
     train_launches, _ = timed(9, phase_train, scene, base)
     k1["launches"] += train_launches[k1["name"]]  # serving's 8 plus training's steps and probe
     k2["launches"] = train_launches[k2["name"]]
+    seg["launches"] = train_launches[seg["name"]]  # the exact steps' backwards
     # the per-tile family (packed=False)
     k3, settings_pt, ctx_pt = timed(10, phase_k3, scene, settings, clock_mhz)
     k4, red_pt_ms = timed(11, phase_k4, scene, ctx_pt, clock_mhz)
@@ -3258,7 +3318,7 @@ def main() -> int:
     log("== phase 25: the kernels line, the card and the status")
     log("small-scene kernel figures at 16x8 and 32x32 (no main path): " + json.dumps(small_rows))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, *probes, *other_shape]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, seg, *probes, *other_shape]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

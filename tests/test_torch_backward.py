@@ -28,7 +28,7 @@ from c3dgs_tpu_torch.render import tiles_packed as ttiles
 from c3dgs_tpu_torch.render.binning import NUM_USED_FIELDS, bin_gaussians
 from c3dgs_tpu_torch.render.tiles import PIX
 from c3dgs_tpu_torch.render.types import RasterSettings as TSettings
-from test_torch_gpu import EV, SCENES, make_scene, render_grads
+from test_torch_gpu import EV, SCENES, make_scene, render_grads, segment_frame, segment_meta
 from test_torch_render import _j, _t, k1_args, staged
 import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
@@ -106,29 +106,76 @@ def test_k2_plain_frame_clamp_and_checks():
 
 
 # -------------------------------------------------------------- reduction
-@pytest.mark.parametrize("compensated", [False, True])
-def test_reducer_matches_jax_and_float64(compensated):
-    sc, kw = make_scene(300)
-    js, fields, tile_lo, meta, b = staged(sc, kw)
-    rows = fields.shape[1]
-    rng = np.random.default_rng(1)
-    grads = (rng.normal(size=(16, rows)) * 0.05).astype(np.float32)
-    gid = np.asarray(b.gid_sorted)
-    grads[:, gid % 3 == 0] = 0.0  # these gaussians' segments are exact zeros
-    perm, emit_cum = np.asarray(b.perm), np.asarray(b.emit_cum)
-    dj = np.asarray(jrast._reduce_instance_grads_packed(jnp.asarray(grads), b.perm, b.emit_cum, compensated))
+def _jax_reduce_every_emission(grads, perm, boundaries, compensated=False):
+    """c3dgs_tpu's _reduce_instance_grads_packed over the whole permutation
+    (the reference slices it to the execution bucket, rasterizer.py:296)."""
+    live, rows = NUM_USED_FIELDS, grads.shape[1]
+    d_pre = grads[:live].T[jnp.minimum(perm, rows - 1)]
+    idx = jnp.arange(perm.shape[0], dtype=jnp.int32)
+    d_pre = jnp.where(((idx < boundaries[-1]) & (perm < rows))[:, None], d_pre, 0.0)
+    seg = jrast._segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
+    return jnp.concatenate([seg, jnp.zeros((boundaries.shape[0], 16 - live), seg.dtype)], axis=1)
+
+
+def reducer_frame(frame):
+    """(grads, perm, emit_cum) numpy inputs of the reduction: "scene", the
+    300-splat scene's frame with seeded rows; "long", test_torch_gpu's
+    segment_frame (a 230-emission splat, 16-256 emission splats, runs of
+    splats with none, slots past the bucket); "tight", the wall scene at an
+    execution bucket of its grad_total (more emissions than slots). The
+    rows of every third splat's emissions are zero."""
+    if frame == "long":
+        grads, perm, emit_cum = (x.numpy() for x in segment_frame())
+    else:
+        sc, kw = SCENES["wall"]() if frame == "tight" else make_scene(300)
+        over = {}
+        if frame == "tight":
+            _, _, _, _, b = staged(sc, kw)
+            over = dict(grad_capacity=int(b.chunks_exec) * 128)
+        _, fields, _, _, b = staged(sc, kw, **over)
+        perm, emit_cum = np.asarray(b.perm), np.asarray(b.emit_cum)
+        grads = (np.random.default_rng(1).normal(size=(16, fields.shape[1])) * 0.05).astype(np.float32)
+    total, rows = int(emit_cum[-1]), grads.shape[1]
+    owner = np.searchsorted(emit_cum, np.arange(total), side="right")
+    slots = perm[:total]
+    grads[:, slots[(owner % 3 == 0) & (slots < rows)]] = 0.0  # these gaussians' segments are exact zeros
+    return grads, perm, emit_cum
+
+
+@pytest.mark.parametrize(
+    "compensated, frame",
+    [(False, "scene"), (True, "scene"), (False, "long"), (True, "long"), (False, "tight"), (True, "tight")],
+    ids=["False", "True", "long-False", "long-True", "tight-False", "tight-True"],
+)
+def test_reducer_matches_jax_and_float64(compensated, frame):
+    """The port's packed reduction (exact mode: segment_sum's plain
+    version) against JAX's at atol 1e-6 (over the whole permutation on the
+    tight frame, where JAX's own drops emissions: the next test) and
+    against a float64 index_add over the kept emissions."""
+    grads, perm, emit_cum = reducer_frame(frame)
+    jax_reduce = _jax_reduce_every_emission if frame == "tight" else jrast._reduce_instance_grads_packed
+    dj = np.asarray(jax_reduce(jnp.asarray(grads), jnp.asarray(perm), jnp.asarray(emit_cum), compensated))
+    g = torch.as_tensor(grads)
     dt = trast._reduce_instance_grads_packed(
-        torch.as_tensor(grads), _t(perm), _t(emit_cum), compensated
+        g, _t(perm), _t(emit_cum), segment_meta(g, -(-g.shape[1] // 128)), compensated
     ).numpy()
-    assert dt.shape == dj.shape == (sc["means"].shape[0], 16)
+    assert dt.shape == dj.shape == (len(emit_cum), 16)
     np.testing.assert_allclose(dt, dj, atol=1e-6)
     assert not dt[np.arange(len(dt)) % 3 == 0].any()
-    # float64 index_add over the emitted positions
-    total = int(emit_cum[-1])
+    # float64 index_add over the emissions whose sorted slot lies in the bucket
+    total, rows = int(emit_cum[-1]), grads.shape[1]
     owner = np.searchsorted(emit_cum, np.arange(total), side="right")
+    pos = perm[:total]
+    inside = pos < rows
     ref = np.zeros((len(dt), 9))
-    np.add.at(ref, owner, grads[:9, perm[:total]].T.astype(np.float64))
+    np.add.at(ref, owner[inside], grads[:9, pos[inside]].T.astype(np.float64))
     np.testing.assert_allclose(dt[:, :9], ref, atol=1e-6)
+    if frame == "long":
+        counts = np.diff(emit_cum, prepend=0)
+        assert counts.max() >= 200 and not dt[counts == 0].any()
+        assert (~inside).sum() > 0 and np.abs(ref[counts >= 16]).max() > 0
+    if frame == "tight":
+        assert rows < total
 
 
 def test_reducer_keeps_emissions_past_a_tight_execution_bucket():
@@ -154,7 +201,8 @@ def test_reducer_keeps_emissions_past_a_tight_execution_bucket():
     inside = pos < rows
     ref = np.zeros((len(emit_cum), 9))
     np.add.at(ref, owner[inside], grads[:9, pos[inside]].T.astype(np.float64))
-    dt = trast._reduce_instance_grads_packed(torch.as_tensor(grads), _t(perm), _t(emit_cum), True).numpy()
+    g = torch.as_tensor(grads)
+    dt = trast._reduce_instance_grads_packed(g, _t(perm), _t(emit_cum), segment_meta(g, rows // 128), True).numpy()
     np.testing.assert_allclose(dt[:, :9], ref, atol=1e-6)
     lost = np.unique(owner[rows:][inside[rows:]])  # gaussians with a kept emission past index `rows`
     assert len(lost) > 0
@@ -223,17 +271,6 @@ def test_render_gradients_match_port_oracle(scene):
     for name, a, b in zip(NAMES[:5], go, gt):
         assert a is not None and np.abs(a).max() > 0, name
         assert_normalized(b, a, GRAD_TOL, name)
-
-
-def _jax_reduce_every_emission(grads, perm, boundaries, compensated=False):
-    """c3dgs_tpu's _reduce_instance_grads_packed over the whole permutation
-    (the reference slices it to the execution bucket, rasterizer.py:296)."""
-    live, rows = NUM_USED_FIELDS, grads.shape[1]
-    d_pre = grads[:live].T[jnp.minimum(perm, rows - 1)]
-    idx = jnp.arange(perm.shape[0], dtype=jnp.int32)
-    d_pre = jnp.where(((idx < boundaries[-1]) & (perm < rows))[:, None], d_pre, 0.0)
-    seg = jrast._segment_prefix_diff(d_pre, boundaries, boundaries > 0, compensated)
-    return jnp.concatenate([seg, jnp.zeros((boundaries.shape[0], 16 - live), seg.dtype)], axis=1)
 
 
 def test_exec_clamped_frame_gradients_match_jax(monkeypatch):

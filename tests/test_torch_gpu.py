@@ -39,7 +39,7 @@ from c3dgs_tpu_torch.compress import pipeline, vq
 from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.models import gaussians
 from c3dgs_tpu_torch.ops import losses, quat, segment
-from c3dgs_tpu_torch.render import oracle, rasterizer, tiles, tiles_packed
+from c3dgs_tpu_torch.render import oracle, rasterizer, segment_sum, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import RasterSettings, settings_from_intrinsic
@@ -499,6 +499,93 @@ def test_k2_is_deterministic():
     a = tiles_packed.backward(*args, totals, g)
     b = tiles_packed.backward(*args, totals, g)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------- the exact reduction
+def segment_frame(n=400, seed=3, device="cpu"):
+    """A training reduction's inputs, made up: K2-like (16, rows) gradient
+    rows, a permutation and emit_cum over n splats. Most splats emit 0-3
+    instances; runs of splats emit none (the first and the last among
+    them); one splat emits 230 and 1% of the rest 16-256 (summed by a whole
+    warp on the card); the permutation runs 50 entries past the emitted
+    total, and about 30 emissions' slots lie past the execution bucket
+    `rows`, which must drop them."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, size=n)
+    counts[rng.choice(n, size=n // 100, replace=False)] = rng.integers(16, 257, size=n // 100)
+    counts[n // 3] = 230
+    counts[:3] = counts[-2:] = counts[n // 2 : n // 2 + 5] = 0
+    emit_cum = np.cumsum(counts).astype(np.int32)
+    total = int(emit_cum[-1])
+    rows = total + 20
+    perm = rng.permutation(total + 50).astype(np.int32)
+    grads = np.zeros((16, rows), np.float32)
+    grads[:9] = rng.normal(size=(9, rows)) * 0.05
+    return [torch.as_tensor(x, device=device) for x in (grads, perm, emit_cum)]
+
+
+def segment_meta(grads, live_chunks):
+    """K1/K2's meta for a made-up frame: [chunks_exec, 0, 1, len(grads)]."""
+    return torch.tensor([live_chunks, 0, 1, grads.shape[1]], dtype=torch.int32, device=grads.device)
+
+
+def test_segment_frame_reduces_on_cpu():
+    """The frame the card's segment-sum tests use runs here through the
+    wrapper's CPU route (the plain version), and launches nothing; slots
+    past meta[0]*128 add nothing, as if their rows were zero."""
+    grads, perm, emit_cum = segment_frame()
+    every = segment_meta(grads, -(-grads.shape[1] // 128))
+    before = segment_sum.KERNEL.launches
+    out = segment_sum.segment_sum(grads, perm, emit_cum, every)
+    assert segment_sum.KERNEL.launches == before
+    assert out.shape == (len(emit_cum), 16) and not out[:, 9:].any() and not out[:3].any()
+    assert torch.equal(out, segment_sum.segment_sum_plain(grads, perm, emit_cum, every))
+    live = grads.shape[1] // 128 - 2
+    cut = grads.clone()
+    cut[:, live * 128 :] = 0.0
+    got = segment_sum.segment_sum(grads, perm, emit_cum, segment_meta(grads, live))
+    assert torch.equal(got, segment_sum.segment_sum(cut, perm, emit_cum, every)) and not torch.equal(got, out)
+
+
+@pytest.mark.gpu
+def test_segment_sum_kernel_matches_plain_and_repeats():
+    """The exact reduction's kernels on 300,000 splats with 3,000 long
+    segments, over every slot and up to a meta's executed chunks: within 1
+    ulp of the plain version (both round a float64 sum once; atol 1e-13
+    covers the float64 sums' other order, ~256 terms of ~0.05 at 2^-52) and
+    bitwise equal on a second launch."""
+    _need_card()
+    grads, perm, emit_cum = segment_frame(300_000, device="cuda")
+    for meta in (segment_meta(grads, -(-grads.shape[1] // 128)), segment_meta(grads, grads.shape[1] // 128 - 50)):
+        got = segment_sum.segment_sum(grads, perm, emit_cum, meta)
+        again = segment_sum.segment_sum(grads, perm, emit_cum, meta)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, segment_sum.segment_sum_plain(grads, perm, emit_cum, meta),
+                                   rtol=2.0 ** -23, atol=1e-13)
+
+
+@pytest.mark.gpu
+def test_segment_sum_launches_once_per_exact_training_backward():
+    """The kernel's count rises once per backward of a training render in
+    exact mode, and stays put through an inference render's forward, a
+    fast_grad backward and an inference render's backward (no perm: the
+    keyed reduction)."""
+    _need_card()
+    sc, kw = make_scene(150)
+    k = segment_sum.KERNEL
+    before = k.launches
+    with torch.no_grad():
+        rasterizer.render(*(torch.as_tensor(sc[f], device="cuda") for f in ("means", "cov", "op")),
+                          torch.as_tensor(EV, device="cuda"), RasterSettings(**kw, inference=True),
+                          torch.zeros(3, device="cuda"), colors_precomp=torch.as_tensor(sc["colors"], device="cuda"))
+    render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=True)
+    render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False, inference=True)
+    torch.cuda.synchronize()
+    assert k.launches == before
+    for i in (1, 2):
+        render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False)
+        assert k.launches == before + i
 
 
 # --------------------------------------------- another tile shape: 16x16
