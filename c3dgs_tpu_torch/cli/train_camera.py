@@ -8,7 +8,8 @@ Parity: train_camera.py (:1-197): load the trained model
 codebook-indexed), perturb each camera's extrinsic 7-vector with
 np.random.default_rng(0) noise, recover it by Adam through the renderer,
 print the pose error before and after; --dump_dir writes each recovered
-view as a PNG. Flags are the JAX CLI's; --data_device (default cuda)
+view as a PNG. One CapacityPolicy follows every step of the run, as in
+cli/train.py. Flags are the JAX CLI's; --data_device (default cuda)
 picks the device, and a missing card is an error.
 """
 import argparse
@@ -20,6 +21,7 @@ import torch
 from ..data import Scene
 from ..device import resolve_device
 from ..eval.metrics import _to_png
+from ..render.capacity import CapacityPolicy
 from ..render.types import settings_from_intrinsic
 from ..train import camera_opt, trainer
 
@@ -46,6 +48,7 @@ def main(argv=None):
         device=dev,
     )
     rng = np.random.default_rng(0)
+    capacity = CapacityPolicy(initial=1 << 20)
     results = []
     for cam in scene.get_train_cameras()[: args.num_cameras]:
         settings = settings_from_intrinsic(cam.intrinsic)
@@ -59,6 +62,7 @@ def main(argv=None):
             iterations=args.iterations,
             lr=args.lr,
             log_every=50,
+            capacity=capacity,
             device=dev,
         )
         ev_opt = ev_opt.cpu().numpy()

@@ -4,9 +4,10 @@ gaussian at a time (port of c3dgs_tpu/render/oracle.py).
 Slow and plain — the oracle the packed path is held against. Semantics of
 forward.cu renderCUDA (:270-383): tile-rect confinement, alpha =
 min(0.99, op*exp(min(power, 0))) skipped below 1/255, contributions while
-T*(1-alpha) >= 1e-4, front to back in the binning's quantized-depth order
-(stable by gaussian index). Like the kernels it keeps multiplying T after
-a pixel saturates and clamps power to 0 instead of skipping power > 0.
+T*(1-alpha) >= 1e-4, front to back in the binning's order (quantized
+depth, then float depth, then gaussian index). Like the kernels it keeps
+multiplying T after a pixel saturates and clamps power to 0 instead of
+skipping power > 0.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .binning import quantize_depth
+from .binning import depth_bits, quantize_depth
 from .preprocess import Preprocessed, preprocess
 from .tiles import MAX_ALPHA, MIN_ALPHA, STOP_T
 from .types import TILE_X, TILE_Y, RasterSettings
@@ -25,10 +26,9 @@ def blend_oracle(prep: Preprocessed, settings: RasterSettings):
     h, w = settings.height, settings.width
     dev = prep.depth.device
     depth_q = quantize_depth(prep.depth, prep.radius > 0, settings.num_tiles)
-    order = torch.argsort(
-        torch.where(prep.radius > 0, depth_q, torch.full_like(depth_q, 0xFFFFFFFF)),
-        stable=True,
-    ).tolist()
+    by_depth = torch.argsort(depth_bits(prep.depth), stable=True)
+    key = torch.where(prep.radius > 0, depth_q, torch.full_like(depth_q, 0xFFFFFFFF))[by_depth]
+    order = by_depth[torch.argsort(key, stable=True)].tolist()
 
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     py = torch.arange(h, dtype=torch.float32, device=dev)[:, None]

@@ -97,7 +97,8 @@ def count_port(n_init: int, n_gt: int, knn: str, device: str) -> dict:
         prep = preprocess(scene.get_xyz(), scene.get_covariance(1.0), scene.get_opacity()[:, 0],
                           torch.as_tensor(cam(0.0), device=scene.device), settings, shs=scene.get_features())
         n, tiles = prep.depth.shape[0], settings.num_tiles
-        _, cum, clipped = binning._emission_prefix(prep, min(tiles, 1 << binning._payload_bits(n, tiles)))
+        # the port keeps every tile a gaussian touches (no payload cap)
+        _, cum, clipped = binning._emission_prefix(prep, tiles)
         touched = prep.tiles_touched
         return {"package": "port", "device": str(scene.device), "n_init": n_init, "n_gt": n_gt, "knn": knn,
                 "instances": int(cum[-1]), "clipped": int(clipped), "visible": int((touched > 0).sum()),

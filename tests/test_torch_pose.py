@@ -13,6 +13,8 @@ Bars:
   gives each component -w/7;
 - camera_step: the loss at atol 1e-6 and ev after each of 5 steps within
   1e-5 of JAX's camera_step, the first of them at the anchor;
+- optimize_camera given a CapacityPolicy: each step at its bucket, its
+  counters fed to it, `clipped` returned and printed (port only);
 - joint_step over 3 steps, the first on a camera at its anchor: the loss
   at atol 1e-6, psnr and pose_delta at rtol 1e-5, the counters exactly,
   evs, ev_m, ev_v and ev_t within 1e-5 of JAX's, the scene by
@@ -25,6 +27,7 @@ Bars:
   on a grid of ties, the active mask and capacity exactly and every row at
   1e-6.
 """
+import dataclasses
 import math
 
 import jax
@@ -46,6 +49,7 @@ from c3dgs_tpu_torch.config import OptimizationParams
 from c3dgs_tpu_torch.models import gaussians as tgauss
 from c3dgs_tpu_torch.models import io_ply as tply
 from c3dgs_tpu_torch.ops import losses as tlosses
+from c3dgs_tpu_torch.render.capacity import CapacityPolicy
 from c3dgs_tpu_torch.render.types import RasterSettings
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, joint, trainer
 from ply_bars import EXTENT, assert_trained_plys_close
@@ -141,6 +145,40 @@ def test_camera_step_matches_jax_over_five_steps(pose_case):
         np.testing.assert_allclose(float(m["loss"]), float(jl), atol=1e-6, rtol=0, err_msg=f"step {step}")
         np.testing.assert_allclose(tev.numpy(), np.asarray(jev), atol=1e-5, rtol=0, err_msg=f"step {step}")
     assert tstate.count == 5 and ts.xyz.grad is None
+
+
+def test_optimize_camera_feeds_its_policy_and_steps_report_clipped(pose_case, monkeypatch, capsys):
+    """With a CapacityPolicy, optimize_camera renders each step at the
+    policy's bucket and feeds it the step's counters, as cli/train.py
+    does; camera_step returns `clipped`, and a step that dropped tiles
+    past the per-splat cap (one tile a splat here) prints a [binning]
+    line."""
+    _, ts, gt = pose_case
+    settings = dataclasses.replace(SET, max_tiles_per_gaussian=1)
+    with torch.no_grad():
+        want = int(trainer.render_scene(ts, EV_ID + DELTA, settings, BG, **CPU)["clipped"])
+    policy = CapacityPolicy(initial=1 << 16)
+    fed, steps = [], []
+    real_update, real_step = policy.update, camera_opt.camera_step
+
+    def update(*a):
+        fed.append(a)
+        return real_update(*a)
+
+    def step(scene, ev, state, gt, step_settings, *a):
+        ev, state, m = real_step(scene, ev, state, gt, step_settings, *a)
+        steps.append((step_settings.instance_capacity, {k: int(m[k]) for k in camera_opt.COUNTERS}))
+        return ev, state, m
+
+    monkeypatch.setattr(policy, "update", update)
+    monkeypatch.setattr(camera_opt, "camera_step", step)
+    camera_opt.optimize_camera(ts, EV_ID + DELTA, gt, settings, iterations=3, lr=3e-3, capacity=policy, **CPU)
+    assert [cap for cap, _ in steps] == [1 << 16] * 3
+    assert fed == [(c["num_instances"], c["overflow"], c["grad_total"], c["grad_overflow"]) for _, c in steps]
+    assert steps[0][1]["clipped"] == want > 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[binning]")]
+    assert lines == [f"[binning] camera step {i}: {c['clipped']} tiles dropped past the per-splat tile cap"
+                     for i, (_, c) in enumerate(steps)]
 
 
 def test_pose_recovery():

@@ -151,6 +151,62 @@ def test_binning_overflow_counted_like_jax():
             np.testing.assert_array_equal(getattr(bt, name).numpy(), np.asarray(getattr(bj, name)), err_msg=name)
 
 
+@pytest.mark.parametrize("inference", [False, True])
+def test_binning_keeps_every_tile_of_a_splat_at_5m_gaussians(inference):
+    """Two splats that cover all 4,080 tiles of a 1920x1080 frame among 5M
+    gaussians: every tile holds both, front one first, each splat's j runs
+    over all its tiles, and nothing is clipped. (The JAX payload gid <<
+    j_bits | j leaves 8 bits for j at 5M gaussians and clips each splat at
+    256 tiles; the port's payload is the emission slot.)"""
+    n, (w, h) = 5_000_000, (1920, 1080)
+    settings = TSettings(width=w, height=h, tanfovx=0.7, tanfovy=0.4, sh_degree=0, instance_capacity=16384,
+                         inference=inference)
+    tx, ty = settings.tiles_x, settings.tiles_y
+    big = torch.tensor([7, n - 1])
+    z = lambda *shape, dtype=torch.float32: torch.zeros(*shape, dtype=dtype)
+    prep = TPrep(mean2d=z(n, 2), depth=torch.full((n,), 5.0), conic=z(n, 3), color=z(n, 3), opacity=z(n),
+                 radius=z(n, dtype=torch.int32), tiles_touched=z(n, dtype=torch.int32),
+                 rect_min=z(n, 2, dtype=torch.int32), rect_max=z(n, 2, dtype=torch.int32))
+    prep.mean2d[big] = torch.tensor([w / 2, h / 2])
+    prep.conic[big] = torch.tensor([1e-7, 0.0, 1e-7])
+    prep.opacity[big] = 0.9
+    prep.depth[big] = torch.tensor([2.0, 1.0])
+    prep.radius[big] = 5000
+    prep.tiles_touched[big] = tx * ty
+    prep.rect_max[big] = torch.tensor([tx, ty], dtype=torch.int32)
+    b = tbinning.bin_gaussians(prep, settings)
+    assert int(b.clipped) == 0 and int(b.overflow) == 0 and int(b.num_instances) == 2 * tx * ty
+    assert torch.equal(b.ends - b.starts, torch.full((tx * ty,), 2, dtype=torch.int32))
+    first, second = b.gid_sorted[b.starts.long()], b.gid_sorted[b.starts.long() + 1]
+    assert torch.all(first == n - 1) and torch.all(second == 7)
+    for g in (7, n - 1):
+        js = b.j_sorted[(b.gid_sorted == g) & ~b.sent_sorted]
+        assert torch.equal(torch.sort(js).values, torch.arange(tx * ty, dtype=torch.int32))
+
+
+def test_binning_orders_a_quantized_depth_tie_by_float_depth():
+    """At 1920x1080 the key keeps 19 depth bits: over depths 5-20 two splats
+    1e-5 apart share a level. The port blends the nearer first, as the
+    reference's float depth order does (JAX: by gaussian index, the
+    farther first here); the oracle agrees."""
+    n, (w, h) = 3, (1920, 1080)
+    settings = TSettings(width=w, height=h, tanfovx=0.7, tanfovy=0.4, sh_degree=0, instance_capacity=8192)
+    f = lambda *rows: torch.tensor(rows, dtype=torch.float32)
+    i = lambda *rows: torch.tensor(rows, dtype=torch.int32)
+    prep = TPrep(mean2d=f([16.0, 8.0], [16.0, 8.0], [1500.0, 900.0]), depth=f(5.0 + 1e-5, 5.0, 20.0),
+                 conic=f([0.01, 0.0, 0.01], [0.01, 0.0, 0.01], [0.01, 0.0, 0.01]),
+                 color=f([1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]), opacity=f(0.5, 0.5, 0.5),
+                 radius=i(20, 20, 20), tiles_touched=i(1, 1, 1), rect_min=i([0, 0], [0, 0], [46, 56]),
+                 rect_max=i([1, 1], [1, 1], [47, 57]))
+    q = tbinning.quantize_depth(prep.depth, prep.radius > 0, settings.num_tiles)
+    assert q[0] == q[1] and prep.depth[0] > prep.depth[1]
+    b = tbinning.bin_gaussians(prep, settings)
+    assert b.gid_sorted[: int(b.ends[0])].tolist() == [1, 0]
+    color, _ = toracle.blend_oracle(prep, settings)
+    # the nearer (green) splat lies in front: more green than red
+    assert float(color[1, 8, 16]) > float(color[0, 8, 16]) > 0
+
+
 @pytest.mark.parametrize("scene", ["make_scene_sh", "boundary"])
 def test_table_and_staged_fields_match_jax_exactly(scene):
     sc, kw = SCENES[scene]()

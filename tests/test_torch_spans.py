@@ -6,8 +6,8 @@
 - Under torch.profiler, a tiny train_step opens exactly the spans of its
   layers, in both kernel families and on a quantized codebook-indexed scene
   (the table gradients' span included); a render_full opens the view's.
-  Every layer span lies in time inside the one root span of its step or
-  view.
+  A camera_step opens the pose step's spans. Every layer span lies in
+  time inside the one root span of its step or view.
 - train_step returns the binning's `clipped` counter, and finetune prints
   a `[binning]` line for a step that dropped tiles.
 """
@@ -25,6 +25,7 @@ from c3dgs_tpu_torch.eval import metrics as tmetrics
 from c3dgs_tpu_torch.models import gaussians as tgauss
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy
 from c3dgs_tpu_torch.render.types import RasterSettings
+from c3dgs_tpu_torch.train import camera_opt
 from c3dgs_tpu_torch.train import finetune as tfinetune
 from c3dgs_tpu_torch.train import trainer
 import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
@@ -37,6 +38,7 @@ CPU = dict(device="cpu")
 TRAIN = {"train_step", "accessors", "preprocess", "binning", "stage", "blend", "loss", "backward", "blend_bwd",
          "reduction", "optimizer"}
 VIEW = {"view", "accessors", "preprocess", "binning", "stage", "blend"}
+POSE = TRAIN - {"train_step", "optimizer"} | {"pose_step", "pose_optimizer"}
 
 
 def scene(quantization=False, indexed=False, n=60, cap=96):
@@ -106,6 +108,17 @@ def test_indexed_quantized_train_step_opens_the_table_gradients_span():
     _hold(got, "train_step", (TRAIN | {"table_grads"}) - {"train_step"})
     # colour and shape tables, one segment sum each
     assert sum(n == "table_grads" for n, _, _ in got) == 2
+
+
+def test_camera_step_opens_the_pose_spans():
+    """The pose step's root, its render's layers, the loss, the backward
+    (K2 and the reduction inside it) and the 7-vector's Adam."""
+    s = scene()
+    ev = torch.tensor([0.01, -0.01, 0.005, 1.0, 0.05, -0.04, 0.02])
+    target = torch.full((3, 32, 32), 0.25)
+    state = trainer.adam_init({"ev": ev})
+    got = recorded(lambda: camera_opt.camera_step(s, ev, state, target, RasterSettings(**KW), torch.zeros(3)))
+    _hold(got, "pose_step", POSE - {"pose_step"})
 
 
 def test_render_full_opens_the_view_spans():
