@@ -65,6 +65,14 @@ def segment_sum_work(n: int, emitted: int, kept: int):
     return 4 * emitted + 4 * n + 9 * 4 * kept + 16 * 4 * n, 0, 0
 
 
+def table_segment_sum_work(n: int, d: int, rows: int):
+    """The least work of a table gradient (csrc/table_segment_sum.cu), as
+    fwd_work's: the (n, d) f32 values and the (n,) int64 ids read once,
+    the (rows, d) f32 table written once, zero rows included; one float64
+    add per value, counted as no fp32 flops."""
+    return 4 * n * d + 8 * n + 4 * rows * d, 0, 0
+
+
 def card(device: torch.device | str) -> str:
     """The card's name and power limit as nvidia-smi gives them
     (--query-gpu=name,power.limit), or "cpu"."""

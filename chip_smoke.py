@@ -69,13 +69,24 @@ Phases (any failed check raises, and the script exits non-zero):
      against its plain version on the tool's and seeded inputs, their
      times against their byte bounds and the launch overhead, and P1
      against torch.mul and P2 against torch.add in 5 alternating rounds;
- 17. compress the 300k scene as compress.py does, with the default
+ 17. the codebook-table gradient kernel (csrc/table_segment_sum.cu) at
+     garden-5m-c3dgs's shapes, ids as benchmark/scene.py draws them: a
+     colour block (262,144 x 48 into 504,096 rows) and the shape gather
+     (5M x 7 into 1,254,096 rows), each run twice bitwise and against
+     its plain version (float64 index_add_) within one float32 rounding,
+     its time beside its byte bound and the plain version's, with its
+     count reset just before; a finetune step's 21 calls timed together;
+     two skewed tables (one row read by 2^20 ids at 48 floats, by 5M at
+     7) held and timed the same way. Then compress the 300k scene as
+     compress.py does, with the default
      CompressionParams and phase 4's 8 orbit views: the bench scene given
      random rotations and scale directions (its kNN init makes every
      splat alike in shape), phase 4's images as its photos, its own
      uncompressed renders as the reference: to_compressed (sensitivity through K2 per
      view, color and covariance VQ, each VQ run twice from its seed and
-     held bitwise), 12 finetune steps through the indexed scene (K1 + K2;
+     held bitwise; the table kernel launched once per VQ segment sum),
+     12 finetune steps through the indexed scene (K1 + K2, the table
+     kernel once per colour block and once for the shape gather a step;
      overflow 0, the caller's scene bit-identical, one step's codebook-row
      gradients bitwise over two runs), save_npz (Morton order, fixed-point
      xyz) and load_npz with their bytes, ratio and seconds, then
@@ -92,7 +103,9 @@ Phases (any failed check raises, and the script exits non-zero):
      flags from cfg_args.json), cli.render and cli.metrics run in this
      process; each CLI's K1 and K2 launches, reset just before and read
      just after, equal the calls that launch them (train_step, the eval
-     renders, sensitivity, finetune); the log, the saved .ply against the
+     renders, sensitivity, finetune), the compress CLI's table-gradient
+     launches its VQ sums plus the colour blocks and the shape gather of
+     each finetune step; the log, the saved .ply against the
      final state, results.json, times.json, the PNG dump and its scores
      checked, and the npz from disk served again; dataset write s, Scene
      load s (its points3D.bin parse through the host codec), s per
@@ -191,7 +204,8 @@ Phases (any failed check raises, and the script exits non-zero):
      1e-2 but the one-pass bf16 matmul's (printed) and torch.cumsum over
      dim 0's (a sequential fp32 scan, held bit for bit to numpy's), each
      tool's K1-K4 launches equal to the calls that make them;
- 25. the `kernels` JSON line (K1-K4, P1-P3, then K1-K4 at 16x16 as
+ 25. the `kernels` JSON line (K1-K4, the segment sum, the table kernel
+     (launches: phases 17-19), P1-P3, then K1-K4 at 16x16 as
      `<name>@16x16`; K1/K2's launches include phase 22's, 23's and 24's
      children and ranks, K3/K4's phase 24's), the card line, and the final
      status line.
@@ -233,11 +247,12 @@ from c3dgs_tpu_torch.cli import train as cli_train
 from c3dgs_tpu_torch.cli import train_camera as cli_train_camera
 from c3dgs_tpu_torch.cli import train_no_splatting as cli_tns
 from c3dgs_tpu_torch.compress import importance, pipeline
+from c3dgs_tpu_torch.compress import vq as compress_vq
 from c3dgs_tpu_torch.config import CompressionParams, OptimizationParams
 from c3dgs_tpu_torch.data import cameras, colmap
 from c3dgs_tpu_torch.eval import lpips, metrics
 from c3dgs_tpu_torch.models import gaussians, io_npz, io_ply
-from c3dgs_tpu_torch.ops import losses, morton, quat
+from c3dgs_tpu_torch.ops import losses, morton, quat, segment
 from c3dgs_tpu_torch.render import oracle, rasterizer, segment_sum, tiles, tiles_packed
 from c3dgs_tpu_torch.render.binning import bin_gaussians, per_gaussian_table
 from c3dgs_tpu_torch.render.capacity import CapacityPolicy, _bucket
@@ -245,7 +260,8 @@ from c3dgs_tpu_torch.render.preprocess import preprocess
 from c3dgs_tpu_torch.render.types import MAX_BINNING_CAP, TILE_X, TILE_Y, RasterSettings, settings_from_intrinsic
 from c3dgs_tpu_torch.tools import datasets, dma_probe, scenes
 from c3dgs_tpu_torch.tools.roofline import (FP32_FLOPS, HBM_BYTES_PER_S, SFU_PER_SM_CLOCK, SMS, bwd_work,
-                                            device_busy_ms, fwd_work, roofline, segment_sum_work)
+                                            device_busy_ms, fwd_work, roofline, segment_sum_work,
+                                            table_segment_sum_work)
 from c3dgs_tpu_torch.train import camera_opt, densify_initial, finetune, trainer
 
 LOG_EXIT_T = math.log(1e-6)
@@ -999,6 +1015,107 @@ def segment_sum_row(grads, meta, b, ref, owner_kept, rows_kept, total, clock_mhz
     }
 
 
+GARDEN_N = 5_000_000  # benchmark/configs' garden-5m-c3dgs splats
+CODEBOOK = 4096  # its codebook rows per table
+COLOUR_BLOCK = 1 << 18  # ops/sh.py::sh_to_rgb_indexed_blocked's block
+
+
+def garden_ids(keep: float, gen: torch.Generator) -> torch.Tensor:
+    """benchmark/scene.py's indices of one garden-5m-c3dgs table: a share
+    `keep` of the splats, drawn uniformly, on rows of their own past the
+    codebook, every other splat on a codebook row drawn uniformly."""
+    k = int(round(keep * GARDEN_N))
+    kept = torch.randperm(GARDEN_N, generator=gen, device=DEVICE)[:k]
+    idx = torch.randint(0, CODEBOOK, (GARDEN_N,), generator=gen, device=DEVICE)
+    idx[kept] = CODEBOOK + torch.arange(k, device=DEVICE)
+    return idx
+
+
+def table_call(name, vals, ids, rows, clock_mhz, reps=20):
+    """One table-gradient call: segment.segment_sum twice (bitwise equal),
+    against segment_sum_plain (a float64 index_add_ rounded once: within
+    one float32 rounding, atol 1e-12 for the float64 sums' other orders),
+    with the kernel's count reset just before; its CUDA-event times beside
+    its byte bound (roofline.table_segment_sum_work) and the plain
+    version's."""
+    kernels.reset_counts()
+    got = segment.segment_sum(vals, ids, rows)
+    again = segment.segment_sum(vals, ids, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"the table gradient is not bitwise repeatable: {name}")
+    err = check_close(f"{name}: table_segment_sum vs its plain version", got,
+                      segment.segment_sum_plain(vals, ids, rows), atol=1e-12, rtol=2.0 ** -23)
+    ms = cuda_ms(lambda: segment.segment_sum(vals, ids, rows), reps=reps)
+    plain_ms = cuda_ms(lambda: segment.segment_sum_plain(vals, ids, rows), reps=5)
+    assert segment.KERNEL.launches == 2 + 2 + reps  # the checked calls, cuda_ms' warm-up and reps
+    bound, bound_by = roofline(*table_segment_sum_work(*vals.shape, rows), clock_mhz)
+    log(f"  {name}: {vals.shape[0]} x {vals.shape[1]} into {rows} rows, longest row read by "
+        f"{int(torch.bincount(ids, minlength=rows).max())}: {statistics.median(ms):.4f} ms median of {len(ms)} "
+        f"(min {min(ms):.4f}); bound {bound:.4f} ms ({bound_by}); plain {statistics.median(plain_ms):.4f} ms")
+    return {"max_abs_err": err, "ms": statistics.median(ms), "plain_ms": statistics.median(plain_ms),
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def table_segment_sum_row(clock_mhz):
+    """The codebook-table gradient kernel (csrc/table_segment_sum.cu) at
+    garden-5m-c3dgs's shapes, ids as benchmark/scene.py draws them: a
+    colour block (2^18 splats x 48 floats into 504,096 rows) and the shape
+    gather (5M x 7 into 1,254,096 rows), each as table_call holds it; the
+    21 calls of a finetune step timed together; and two skewed tables, one
+    row read by 2^20 of 2^20 + 2^16 ids at 48 floats and by all of 5M ids
+    at 7, as table_call holds them. The row's figures are the colour
+    block's; its launches are the finetune phases'."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    colour_ids, shape_ids = garden_ids(0.1, gen), garden_ids(0.25, gen)
+    colour_rows, shape_rows = CODEBOOK + GARDEN_N // 10, CODEBOOK + GARDEN_N // 4
+    colour = torch.randn((GARDEN_N, 48), generator=gen, device=DEVICE)
+    shape = torch.randn((GARDEN_N, 7), generator=gen, device=DEVICE)
+    calls = [(colour[s : s + COLOUR_BLOCK], colour_ids[s : s + COLOUR_BLOCK], colour_rows)
+             for s in range(0, GARDEN_N, COLOUR_BLOCK)] + [(shape, shape_ids, shape_rows)]
+    row = table_call("colour block", *calls[0], clock_mhz)
+    gather = table_call("shape gather", *calls[-1], clock_mhz)
+    step_ms = cuda_ms(lambda: [segment.segment_sum(*c) for c in calls], reps=10)
+    step_bound = sum(table_segment_sum_work(*v.shape, r)[0] for v, _, r in calls) / HBM_BYTES_PER_S * 1e3
+    log(f"  a finetune step's {len(calls)} calls: {statistics.median(step_ms):.4f} ms median of {len(step_ms)}; "
+        f"bound {step_bound:.4f} ms")
+    del colour, shape, calls
+    skewed = {}
+    for name, n, d in (("skewed 2^20 of 2^20 + 2^16 ids, 48 floats", 1 << 20, 48),
+                       ("skewed all of 5M ids, 7 floats", GARDEN_N, 7)):
+        rest = GARDEN_N - n if n == GARDEN_N else 1 << 16
+        ids = torch.cat([torch.full((n,), 5, device=DEVICE), torch.randint(0, CODEBOOK, (rest,), generator=gen,
+                                                                           device=DEVICE)])
+        ids = ids[torch.randperm(ids.shape[0], generator=gen, device=DEVICE)]
+        vals = torch.randn((ids.shape[0], d), generator=gen, device=DEVICE)
+        skewed[name] = table_call(name, vals, ids, CODEBOOK, clock_mhz)
+    return {
+        "name": segment.KERNEL.name,
+        "route": "cuda",
+        "source": "c3dgs_tpu_torch/csrc/table_segment_sum.cu",
+        "replaces": segment.KERNEL.replaces,
+        "launches": None,  # filled from the finetune phases
+        **row,
+        "library_ms": None,  # segment_sum_plain is torch.Tensor.index_add_ in float64
+        "scene": "garden-5m-c3dgs colour block: 262,144 x 48 into 504,096 rows",
+        "shape_gather": gather,
+        "step_ms": statistics.median(step_ms),
+        "step_bound_ms": step_bound,
+        "skewed": skewed,
+    }
+
+
+def table_calls(scene) -> int:
+    """The table-gradient kernel's launches in one train_step of a
+    codebook-indexed scene: one per colour block (ops/sh.py's 2^18 splats
+    from trainer.BLOCKED_COLORS_MIN, else one colour gather) and one for
+    the shape gather."""
+    blocked = scene.capacity >= trainer.BLOCKED_COLORS_MIN
+    colour = -(-scene.capacity // COLOUR_BLOCK) if blocked else 1
+    return colour * int(scene.is_color_indexed) + int(scene.is_gaussian_indexed)
+
+
 # -------------------------------------------------------------- fwd+bwd
 def phase_fwd_bwd(scene, settings, bwd_ms, red_ms, label="phase 8"):
     """bench.py's metric on the card: one forward and the gradients of the
@@ -1583,16 +1700,19 @@ def view_ms(scene, cams, policy):
     return out
 
 
-def phase_compress(scene, cams, serve_ms, finetune_steps=12):
-    """Compress the bench scene as compress.py does (to_compressed ->
-    finetune -> save_npz -> load_npz -> render_and_eval) with the default
-    CompressionParams; the finetune's depth is cut from 5,000 steps. The
-    8 orbit views of phase 4 are the cameras, their uncompressed renders
-    the images. Each stage runs with the kernel counts reset just before
-    and read just after; returns the summed launches and the loaded npz's
-    (codebook-indexed) scene."""
-    log(f"== phase 17: compress the 300k scene (to_compressed, finetune {finetune_steps} steps, save_npz, "
-        "load_npz, render_and_eval)")
+def phase_compress(scene, cams, serve_ms, clock_mhz, finetune_steps=12):
+    """The table-gradient kernel at garden-5m-c3dgs's shapes
+    (table_segment_sum_row), then compress the bench scene as compress.py
+    does (to_compressed -> finetune -> save_npz -> load_npz ->
+    render_and_eval) with the default CompressionParams; the finetune's
+    depth is cut from 5,000 steps. The 8 orbit views of phase 4 are the
+    cameras, their uncompressed renders the images. Each stage runs with
+    the kernel counts reset just before and read just after; returns the
+    summed launches, the loaded npz's (codebook-indexed) scene and the
+    table kernel's row."""
+    log(f"== phase 17: the table-gradient kernel at garden-5m-c3dgs's shapes; compress the 300k scene "
+        f"(to_compressed, finetune {finetune_steps} steps, save_npz, load_npz, render_and_eval)")
+    tab = table_segment_sum_row(clock_mhz)
     comp = CompressionParams()
     # the bench scene with shapes as a trained scene has them: its kNN init
     # leaves every splat isotropic with the identity rotation, so every
@@ -1643,13 +1763,19 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
         return out
 
     timings = {}
+    rec = Recorder()
+    rec.wrap(compress_vq, "segment_sum")
+    rec.wrap(pipeline, "segment_sum")
     kernels.reset_counts()
     pipeline.vq_features = recorded_vq
     try:
         compressed = pipeline.to_compressed(src, cams, comp, timings=timings, device=DEVICE)
     finally:
         pipeline.vq_features = real_vq
+        rec.restore()
     got = add("to_compressed")
+    sums = rec.calls("segment_sum")
+    assert sums > 0 and got[segment.KERNEL.name] == sums, (got, sums)
     compressed.check_state()
     n = compressed.capacity
     log(f"  sensitivity {timings['sensitivity_calculation']:.3f} s, clustering {timings['clustering']:.3f} s")
@@ -1681,6 +1807,9 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     assert all(math.isfinite(h["loss"]) for h in hist), "non-finite finetune loss"
     assert all(h["overflow"] == 0 and h["grad_overflow"] == 0 for h in hist), f"overflow in the finetune: {hist}"
     assert got["tiles_packed_bwd"] == finetune_steps and got["tiles_packed_fwd"] == finetune_steps + 1, got
+    per_step = table_calls(compressed)
+    assert got[segment.KERNEL.name] == finetune_steps * per_step, (got, per_step)
+    log(f"  table-gradient launches: {per_step} a step (colour blocks + the shape gather)")
     assert all(torch.equal(before[k], v) for k, v in compressed.state_dict().items()), \
         "finetune changed the caller's scene"
     log("  the caller's compressed scene is bit-identical after the finetune")
@@ -1744,7 +1873,7 @@ def phase_compress(scene, cams, serve_ms, finetune_steps=12):
     log(f"  served view ms, uncompressed: {[round(m, 3) for m in base_ms]}; median {statistics.median(base_ms):.3f} "
         f"(phase 4: median {statistics.median(serve_ms):.3f})")
     log(f"  K1 and K2 launches over the phase: {total}")
-    return total, loaded
+    return total, loaded, tab
 
 
 # ------------------------------------------------------- from disk
@@ -1905,6 +2034,8 @@ def phase_cli(scene, n_views=24, epochs=8, finetune_steps=12, width=1920, height
     rec.wrap(importance, "_importance_step")
     rec.wrap(finetune.trainer, "train_step")
     rec.wrap(cli_compress.metrics, "render_full")
+    rec.wrap(compress_vq, "segment_sum")
+    rec.wrap(pipeline, "segment_sum")
     kernels.reset_counts()
     try:
         compressed = cli_compress.main(["-m", out, "--finetune_iterations", str(finetune_steps)])
@@ -1921,11 +2052,13 @@ def phase_cli(scene, n_views=24, epochs=8, finetune_steps=12, width=1920, height
     assert ft == finetune_steps and sens >= n_test, (ft, sens)
     assert got["tiles_packed_bwd"] == sens + ft and got["tiles_packed_fwd"] == sens + ft + 1 + eval_renders, \
         (got, sens, ft, eval_renders)
+    sums, per_step = rec.calls("segment_sum"), table_calls(compressed)
+    assert got[segment.KERNEL.name] == sums + ft * per_step, (got, sums, ft, per_step)
     for k in ("psnr", "ssim", "uncompressed_psnr", "psnr_drop", "compression_ratio"):
         assert math.isfinite(results[k]), (k, results)
     assert all(math.isfinite(v) for v in times.values()), times
     log(f"  kernel launches {got}: K2 = {sens} sensitivity renders + {ft} finetune steps, K1 = those + the "
-        f"finetune's probe + {eval_renders} eval renders")
+        f"finetune's probe + {eval_renders} eval renders; table gradients = {sums} VQ sums + {ft} x {per_step}")
     log(f"  npz {results['size_bytes']} B against the trained .ply's {results['ply_size_bytes']} B: ratio "
         f"{results['compression_ratio']:.3f}; PSNR {results['psnr']:.4f} (uncompressed {results['uncompressed_psnr']:.4f}, "
         f"drop {results['psnr_drop']:.4f})")
@@ -3291,13 +3424,15 @@ def main() -> int:
     k3["launches"] += train_pt[k3["name"]]  # per-tile serving's 8 plus training's steps
     k4["launches"] = train_pt[k4["name"]]
     probes = timed(16, phase_probes)
-    compress_launches, compressed = timed(17, phase_compress, scene, cams, serve_ms)
+    compress_launches, compressed, tab = timed(17, phase_compress, scene, cams, serve_ms, clock_mhz)
     k1["launches"] += compress_launches[k1["name"]]  # sensitivity, finetune and serving the npz
     k2["launches"] += compress_launches[k2["name"]]  # sensitivity and finetune
     cli_launches = timed(18, phase_cli, scene)
     k1["launches"] += cli_launches[k1["name"]]  # the CLIs' steps, evals, sensitivity, finetune, renders
     k2["launches"] += cli_launches[k2["name"]]  # the CLIs' steps, sensitivity and finetune
     pose_launches = timed(19, phase_pose, scene, cams, compressed)
+    # the VQ sums and finetune steps of the compression, the CLIs, and the joint and indexed runs
+    tab["launches"] = sum(p[tab["name"]] for p in (compress_launches, cli_launches, pose_launches))
     k1["launches"] += pose_launches[k1["name"]]  # pose and joint steps, sensitivity, finetune, renders
     k2["launches"] += pose_launches[k2["name"]]  # pose and joint steps, sensitivity and finetune
     multi = timed(20, phase_multi, scene, settings)
@@ -3318,7 +3453,7 @@ def main() -> int:
     log("== phase 25: the kernels line, the card and the status")
     log("small-scene kernel figures at 16x8 and 32x32 (no main path): " + json.dumps(small_rows))
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, seg, *probes, *other_shape]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, seg, tab, *probes, *other_shape]}), flush=True)
     print(card, flush=True)
     print(json.dumps({
         "ok": True,

@@ -53,10 +53,12 @@ from c3dgs_tpu_torch.models import gaussians as tgauss
 from c3dgs_tpu_torch.ops import losses as tlosses
 from c3dgs_tpu_torch.ops import quat as tquat
 from c3dgs_tpu_torch.ops import sh as tsh
+from c3dgs_tpu_torch.ops import segment
 from c3dgs_tpu_torch.ops.segment import gather_rows, segment_sum
 from c3dgs_tpu_torch.render.types import RasterSettings
 from c3dgs_tpu_torch.train import finetune as tfinetune
 from c3dgs_tpu_torch.train import trainer
+from test_torch_gpu import TABLE_LAYOUTS, table_ids
 from test_torch_serve import carry_over
 import torch_cpu  # noqa: F401,E402  (one torch thread per test worker)
 
@@ -209,19 +211,30 @@ def test_join_features():
     np.testing.assert_allclose(out[1::2][:, 0], [100, 200, 100, 200, 100])
 
 
-def test_segment_sum_and_gather_gradient(rng):
-    vals = rng.normal(size=(300, 4, 3)).astype(np.float32)
-    ids = rng.integers(0, 40, 300)
-    ids[ids == 7] = 8  # an empty segment
-    got = segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), 40).numpy()
-    ref = np.zeros((40, 4, 3))
+@pytest.mark.parametrize("d", (4, 7, 48))
+@pytest.mark.parametrize("layout", TABLE_LAYOUTS)
+def test_segment_sum_and_gather_gradient(rng, layout, d):
+    """segment_sum's CPU path (the plain version) on each id layout of the
+    card's table-gradient tests, at a CPU size, with the compress
+    pipeline's 4, the shape gather's 7 or the colours' 16 x 3 columns:
+    numpy's float64 add.at in the same order, rounded once to float32, bit
+    for bit; every empty row exactly 0; gather_rows' table gradient the
+    same sums; no kernel launch."""
+    ids, rows = table_ids(layout, small=True)
+    shape = (len(ids), 16, 3) if d == 48 else (len(ids), d)
+    vals = rng.normal(size=shape).astype(np.float32)
+    ref = np.zeros((rows, *shape[1:]))
     np.add.at(ref, ids, vals.astype(np.float64))
-    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-6)
-    assert (got[7] == 0).all()
-    table = torch.tensor(rng.normal(size=(40, 4, 3)).astype(np.float32), requires_grad=True)
-    w = torch.as_tensor(vals)
-    (gather_rows(table, torch.as_tensor(ids)) * w).sum().backward()
-    np.testing.assert_allclose(table.grad.numpy(), ref, atol=1e-6, rtol=1e-6)
+    before = segment.KERNEL.launches
+    got = segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), rows).numpy()
+    np.testing.assert_array_equal(got, ref.astype(np.float32))
+    empty = np.ones(rows, bool)
+    empty[ids] = False
+    assert not got[empty].any() and (empty.any() or layout != "empty")
+    table = torch.tensor(rng.normal(size=(rows, *shape[1:])).astype(np.float32), requires_grad=True)
+    (gather_rows(table, torch.as_tensor(ids)) * torch.as_tensor(vals)).sum().backward()
+    np.testing.assert_array_equal(table.grad.numpy(), ref.astype(np.float32))
+    assert segment.KERNEL.launches == before
 
 
 # --------------------------------------------------------------- shapes

@@ -8,9 +8,10 @@ port's oracle and CPU path in both kernel families, the SSIM gradient
 in fp32, and the compression path: an indexed scene's render and
 codebook gradients against the CPU path, blocked codebook colors past
 2^20 splats against the dense gather, bitwise-repeatable VQ and
-codebook gradients, fp32 nearest-codebook search, two finetune steps and
-eigh past cuSOLVER's batch limit; the train CLI on the card against the
-CPU; the pose gradient and a camera_step, and LPIPS, on the card against
+codebook gradients, the codebook-table gradient kernel on four id layouts
+and six widths and its launches in a train_step, fp32 nearest-codebook
+search, two finetune steps and eigh past cuSOLVER's batch limit; the
+train CLI on the card against the CPU; the pose gradient and a camera_step, and LPIPS, on the card against
 the CPU; K1-K4 built for 16x16 tiles against their plain versions, in a
 child process (tests/torch_tile_shape_cases.py), and the wrappers'
 refusal of a tile shape the kernels cannot take.
@@ -586,6 +587,104 @@ def test_segment_sum_launches_once_per_exact_training_backward():
     for i in (1, 2):
         render_grads(rasterizer.render, sc, kw, "cuda", fast_grad=False)
         assert k.launches == before + i
+
+
+# ------------------------------------------- the codebook-table gradients
+TABLE_LAYOUTS = ("uniform", "bimodal", "skewed", "empty")
+
+
+def table_ids(layout, small=False, seed=0):
+    """(ids, rows) of a table gradient, shuffled: `uniform` ids over the
+    whole table; `bimodal` as garden-5m-c3dgs's colour blocks, 4,096
+    codebook rows read ~60 times each and 26,000 kept rows read once in a
+    table of 4,096 + 500,000 rows; `skewed` one row read by 2^20 ids among
+    2^16 uniform over 4,096 rows; `empty` ids on every third row of the
+    table's first half only. `small` scales each to a CPU's size (64
+    codebook rows, 400 kept, 2^14 on the skewed row)."""
+    rng = np.random.default_rng(seed)
+    s = 64 if small else 1
+    if layout == "uniform":
+        rows = (1 << 16) // s
+        ids = rng.integers(0, rows, 4 * rows)
+    elif layout == "bimodal":
+        cb, kept = 4096 // s, 26_000 // s
+        rows = cb + 500_000 // s
+        ids = np.concatenate([rng.integers(0, cb, 60 * cb), cb + rng.choice(rows - cb, kept, replace=False)])
+    elif layout == "skewed":
+        rows = 4096 // s
+        ids = np.concatenate([np.full((1 << 20) // s, 5), rng.integers(0, rows, (1 << 16) // s)])
+    elif layout == "empty":
+        rows = (1 << 17) // s
+        ids = 3 * rng.integers(0, rows // 6, rows)
+    else:
+        raise ValueError(layout)
+    return rng.permutation(ids), rows
+
+
+def check_table_kernel(layout, d):
+    """segment_sum on the card twice on `layout`'s ids and N(0, 1) values
+    of d columns: within one float32 rounding of a float64 index_add_
+    (rtol 2^-23; atol 1e-12 covers the two float64 sums' other orders),
+    bitwise equal, one launch a call, and every empty row exactly 0."""
+    ids, rows = table_ids(layout)
+    rng = np.random.default_rng(1)
+    vals = torch.as_tensor(rng.normal(size=(len(ids), d)), dtype=torch.float32, device="cuda")
+    idx = torch.as_tensor(ids, device="cuda")
+    before = segment.KERNEL.launches
+    got = segment.segment_sum(vals, idx, rows)
+    again = segment.segment_sum(vals, idx, rows)
+    torch.cuda.synchronize()
+    assert segment.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    ref = torch.zeros((rows, d), dtype=torch.float64).index_add_(0, idx.cpu(), vals.cpu().double())
+    torch.testing.assert_close(got.cpu().double(), ref, rtol=2.0**-23, atol=1e-12)
+    empty = torch.ones(rows, dtype=torch.bool)
+    empty[idx.cpu()] = False
+    assert not got.cpu()[empty].any() and (bool(empty.any()) or layout != "empty")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (7, 48))
+@pytest.mark.parametrize("layout", TABLE_LAYOUTS)
+def test_table_segment_sum_kernel_matches_plain_and_repeats(layout, d):
+    """The table-gradient kernel (csrc/table_segment_sum.cu) on each id
+    layout, at the shape gather's 7 and the colour blocks' 48 columns, as
+    check_table_kernel holds it."""
+    _need_card()
+    check_table_kernel(layout, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", (1, 4, 49, 300))
+def test_table_segment_sum_kernel_takes_any_width(d):
+    """The other widths: the compress pipeline's 4 and vq's 49 columns, a
+    lane group of one lane, and 300 columns (two windows of 256), on the
+    bimodal layout, as check_table_kernel holds it."""
+    _need_card()
+    check_table_kernel("bimodal", d)
+
+
+@pytest.mark.gpu
+def test_table_segment_sum_launches_per_colour_block_and_shape_gather(monkeypatch):
+    """One train_step of the compressed toy scene (QAT on) with its colours
+    in blocks of 128 splats: the table-gradient kernel launches once per
+    colour block and once for the shape gather, and nothing else in the
+    step launches it."""
+    _need_card()
+    _, cams, comp = compressed_toy("cuda")
+    monkeypatch.setattr(trainer, "BLOCKED_COLORS_MIN", 0)
+    real = trainer.sh_ops.sh_to_rgb_indexed_blocked
+    monkeypatch.setattr(trainer.sh_ops, "sh_to_rgb_indexed_blocked",
+                        lambda *a, **k: real(*a, **k, block=128))
+    state = trainer.create_train_state(comp.clone(), OptimizationParams(), 1.0, device="cuda")
+    cam = cams[0]
+    before = segment.KERNEL.launches
+    _, metrics = trainer.train_step(state, cam.extrinsic_vector, cam.original_image,
+                                    settings_from_intrinsic(cam.intrinsic), torch.zeros(3, device="cuda"),
+                                    device="cuda")
+    torch.cuda.synchronize()
+    assert comp.quantization and int(metrics["overflow"]) == 0
+    assert segment.KERNEL.launches - before == -(-comp.feature_indices.shape[0] // 128) + 1
 
 
 # --------------------------------------------- another tile shape: 16x16
